@@ -10,11 +10,19 @@ Phases (any failure raises and the script exits non-zero):
    this checkout with nvcc;
 3. kernel against its plain version — the gait2 knots linearized on the
    card, θ perturbed by 0.003·N(0, 1) from numpy.random.default_rng(0),
-   at the main path's shape (16 lanes × 7 line-search trials × 9 stages =
-   1008 problems) and at N = 3: every problem after 1 and 3 iterations
+   at the main path's two shapes (16 lanes × 7 line-search trials × 9
+   stages = 1008 problems, and 16 × 1 × 9 = 144, the first launch of every
+   period), at N = 3 and at N = 256 × 63 = 16128 (past 2048 problems a
+   block holds 8 warps, not 1): every problem after 1 and 3 iterations
    (``max_abs_err`` below is the largest |Δz| there), and shares of
-   agreeing problems after the main path's 8; then warm times of both at
-   N = 1008 and N = 256 × 63 = 16128 (CUDA events);
+   agreeing problems after the main path's 8; the kernel's per-knot
+   prologue against the plain packing of the same constants; then warm
+   times of both at N = 144, N = 1008 and N = 256 × 63 = 16128 (CUDA
+   events; the kernel's launches queued behind a spin on the device so
+   that the events bracket kernels, not the host's enqueueing), and the
+   kernel's bound at each (``ops/knot_ip.py::bound_ms``): the larger of
+   its operations over 67 TFLOP/s (float32 outside the tensor cores) and
+   its bytes over 3.35 TB/s, both counted by ``work`` from the shapes;
 4. main path — the flat-ground quadruped closed-loop MPC rollout at the
    HotPathConfig defaults, float32, 16 lanes × 100 sim steps, with the
    kernel's launch counter read around it and the closed-loop health
@@ -26,8 +34,10 @@ Phases (any failure raises and the script exits non-zero):
    On these lanes the JAX package (float32, CPU) converges every sim step
    of every lane.
 
-The line before the last is a JSON object with the kernel's comparison and
-times; the last line is ``{"ok": true, "device": {...}}``.
+A JSON line gives the bound and the kernel's share of it at each timed
+shape; the line before the card's name is a JSON object with the kernel's
+comparison, launches, times and bound at the main path's N = 1008; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -71,6 +81,13 @@ CONV_AGREE = 0.93     # share of converged flags that agree
 Q2_TOL, Q2_SHARE = 1e-3, 0.95   # q2 block, share of both-converged problems
 Z_TOL, Z_SHARE = 5e-3, 0.85     # all of z
 DZ_TOL, DZ_SHARE = 1e-2, 0.93   # dz relative to the problem's largest entry
+# The prologue's products and inverse against the plain packing: both sum
+# 11 float32 terms in another order, ~1e-7 of the block's largest entry
+# measured; copies are exact.
+PACK_TOL = 1e-5
+PACK_EXACT = ("rza", "dy1", "ry1d", "ry2", "z0", "r0", "theta0", "rtheta0")
+
+SPIN_CYCLES = 60_000_000   # ≈ 35 ms of device spin ahead of timed launches
 
 
 def card():
@@ -80,10 +97,15 @@ def card():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, spin=False):
+    """CUDA-event time of one call; with ``spin`` the calls are queued
+    behind a spin on the device, so that a short kernel's time is not the
+    host's enqueueing time."""
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -103,6 +125,28 @@ def knot_problems(lin, ref, lanes, trials, stages, rng, dims):
     alt = torch.zeros(shape + (dims.nc,), dtype=torch.float32, device="cuda")
     knots = [x[:stages].contiguous() for x in lin]
     return knots, alt, th.contiguous(), q2
+
+
+def compare_pack(dims, knots):
+    """The prologue's packed per-knot constants against the plain packing."""
+    got = knot_mod.pack_knots(dims, *knots)
+    want = knot_mod.pack_knots_plain(dims, *knots)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape, (got.shape, want.shape)
+    want_blocks = knot_mod.pack_blocks(dims, want)
+    worst = 0.0
+    for name, a in knot_mod.pack_blocks(dims, got).items():
+        b = want_blocks[name]
+        if name in PACK_EXACT:
+            assert torch.equal(a, b), name
+        else:
+            rel = float((a - b).abs().max()) / float(b.abs().max())
+            assert rel <= PACK_TOL, (name, rel)
+            worst = max(worst, rel)
+    assert bool((got[want == 0] == 0).all()), "padding not zero"
+    print(f"prologue vs plain packing, K={got.shape[0]}: copies equal, "
+          f"largest relative error of a computed block {worst:.3g}",
+          flush=True)
 
 
 def dz_rel(out, ref):
@@ -189,26 +233,37 @@ def main():
         return out, want
 
     main_shape = knot_problems(lin, ref, 16, trials, stages, rng, dims)
+    first_shape = knot_problems(lin, ref, 16, 1, stages, rng, dims)
     small = knot_problems(lin, ref, 1, 1, 3, rng, dims)
+    large = knot_problems(lin, ref, 256, trials, stages, rng, dims)
     max_err = 0.0
-    for problems in (main_shape, small):
+    for problems in (main_shape, first_shape, small, large):
         for n_iter in EXACT_ITERS:
             max_err = max(max_err, compare_exact(*run(problems, n_iter),
                                                  n_iter))
     compare_full(dims, *run(main_shape, iters))
+    compare_pack(dims, main_shape[0])
 
-    times = {}
-    for lanes in (16, 256):
-        k_fn, p_fn = pair(knot_problems(lin, ref, lanes, trials, stages, rng,
-                                        dims))
-        n = lanes * trials * stages
+    times, bounds = {}, []
+    for lanes, n_trials in ((16, 1), (16, trials), (256, trials)):
+        k_fn, p_fn = pair(knot_problems(lin, ref, lanes, n_trials, stages,
+                                        rng, dims))
+        n = lanes * n_trials * stages
         p1 = cuda_ms(p_fn, 3)
-        k1 = cuda_ms(k_fn, 10)
-        k2 = cuda_ms(k_fn, 10)
+        k1 = cuda_ms(k_fn, 20, spin=True)
+        k2 = cuda_ms(k_fn, 20, spin=True)
         p2 = cuda_ms(p_fn, 3)
         times[n] = (min(k1, k2), min(p1, p2))
+        bound, which = knot_mod.bound_ms(dims, n, stages, iters, opts)
+        bounds.append({"n": n, "ms": times[n][0], "bound_ms": bound,
+                       "bound_by": which, "share": bound / times[n][0]})
         print(f"knot_ip N={n}: kernel {times[n][0]:.4f} ms, plain "
-              f"{times[n][1]:.4f} ms {tag}", flush=True)
+              f"{times[n][1]:.4f} ms, bound {bound:.4f} ms by {which} "
+              f"{tag}", flush=True)
+    per_period = times[144][0] + cfg.newton_iters * times[1008][0]
+    print(f"knot_ip per control period (1 launch at N=144, "
+          f"{cfg.newton_iters} at N=1008): {per_period:.4f} ms {tag}",
+          flush=True)
 
     # ---- 4. main path --------------------------------------------------------
     steps = 100
@@ -255,12 +310,19 @@ def main():
           f"knot_ip launches {launches} {tag}", flush=True)
     assert success >= 0.9, per_lane.tolist()
 
+    print(json.dumps({"knot_ip_bound": bounds,
+                      "peak_flops": knot_mod.PEAK_FLOPS,
+                      "peak_bytes_per_s": knot_mod.PEAK_BYTES,
+                      "card": name_power}))
+    main_bound = next(b for b in bounds if b["n"] == 1008)
     print(json.dumps({"kernels": [{
         "name": "knot_ip", "route": "cuda",
         "source": "contactimplicitmpc_tpu_torch/csrc/knot_ip.cu",
         "replaces": "contactimplicitmpc_tpu/ops/pallas_ip.py:310",
         "launches": launches, "max_abs_err": max_err,
-        "ms": times[1008][0], "plain_ms": times[1008][1]}]}))
+        "ms": times[1008][0], "plain_ms": times[1008][1],
+        "bound_ms": main_bound["bound_ms"], "bound_by": main_bound["bound_by"],
+        "library_ms": None}]}))
     print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..dims import Dims
 
 
@@ -26,6 +27,10 @@ class TrackingObjective(NamedTuple):
 def tracking_objective(dims: Dims, horizon: int, q=None, u=None, gamma=None,
                        b=None, dtype=torch.float64,
                        device=None) -> TrackingObjective:
+    """Weights given as (n,) or (horizon, n), zeros where left out, on
+    ``device``, by default the GPU (``device.default_device``)."""
+    device = resolve_device(device)
+
     def mk(x, n):
         if x is None:
             return torch.zeros((horizon, n), dtype=dtype, device=device)

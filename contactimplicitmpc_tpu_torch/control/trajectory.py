@@ -12,6 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..dims import Dims
 from ..models.base import Model, dims_of, e_mapping
 from ..sim.residual import pack_theta, pack_z
@@ -55,7 +56,9 @@ def from_gait(model: Model, env, gait: dict, kappa=0.0,
               device=None) -> ContactTraj:
     """Build a ContactTraj from a converted gait asset
     (get_trajectory, trajectory.jl:143-185). ``update_friction`` replaces
-    the gait's friction coefficient with the model's."""
+    the gait's friction coefficient with the model's. The tensors lie on
+    ``device``, by default the GPU (``device.default_device``)."""
+    device = resolve_device(device)
     dims = dims_of(model, env)
     t = lambda k: torch.as_tensor(np.asarray(gait[k]), dtype=dtype,
                                   device=device)

@@ -8,23 +8,60 @@
 // Mehrotra predictor-corrector iterations on the structured Schur path with
 // the last-finite-iterate guard, the final residual, `converged`, `rvio`,
 // `kvio`, and the sensitivity solve dz = -K_reg^-1 rtheta0 with refinement
-// and zeroing of non-finite results.
+// and zeroing of non-finite results. Every max/min propagates NaN as
+// jnp.maximum/jnp.minimum do, and the line search picks as jnp.argmin does.
 //
-// What bounds it: per problem the solve reads ~16 KB (its knot's rz0 and
-// rtheta0, shared by every problem of that knot and so mostly served from
-// L2) and does a few hundred thousand flops as a long chain of dependent
-// small steps (a 16x16 Gauss-Jordan inverse, matrix-vector products, warp
-// reductions, a line search with selection). At N ~ 16k problems that is
-// ~0.26 GB and ~6 GFLOP: neither bytes nor tensor cores bound it, the
-// latency of the dependent steps does.
+// What bounds it: operations, not bytes. For the quadruped (nx 11, ny 16,
+// ntheta 34; 8 iterations, 1 refinement pass, 4 step lengths a direction) a
+// problem needs ~0.48 Mflop of float32 arithmetic against ~6.2 KB of its
+// own traffic (dz, 43 x 34, is 94% of it) plus ~13.7 KB once per knot:
+// ~75 flop a byte, above the card's 20 flop a byte at 67 TFLOP/s and
+// 3.35 TB/s. ops/knot_ip.py::work counts both for a call; the bound is
+// ~0.007 ms at the main path's N = 1008 and ~0.115 ms at N = 16128. The
+// products are 11 to 43 wide and must stay full float32 (TF32 loses the
+// agreement with the plain version, and wgmma's 64-row tile does not fit a
+// 16 x 16 system), so no tensor cores, and the bound is reckoned at the
+// 67 TFLOP/s of the plain float32 pipes. What the kernel really fights is
+// the length of one problem's chain of dependent small steps: at the main
+// path's sizes every problem is resident at once and the time is one
+// problem's latency. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py): 0.065 ms at N = 144, 0.084 ms at N = 1008 and 0.911 ms
+// at N = 16128, which is 1.6%, 8.6% and 12.7% of the bound.
 //
-// Design: one warp per problem, its blocks in shared memory (~14 KB in
-// float32), two problems per block, one launch per call. Each lane owns a
-// row of every matrix-vector product (all rows here are <= 32), reductions
-// are xor-butterfly shuffles (bitwise identical in every lane, so the
-// warp's control flow stays uniform), and every max/min propagates NaN as
-// jnp.maximum/jnp.minimum do. Problem n uses knot n % K of the
-// linearization arrays. wgmma/TMA are left for later work.
+// Design:
+// - Per-knot constants once. knot_pack_kernel (one block a knot) inverts Dx,
+//   forms Rx Dx^-1, Dx^-1 Dy1 and Ry1 - Rx Dx^-1 Dy1, and lays them, the
+//   equality rows of rz0, rtheta0, r0, z0 and theta0 out as one
+//   16-byte-aligned block a knot (struct Lay) in scratch that the wrapper
+//   allocates.
+// - A block works on problems of one knot (problem n uses knot n % K). It
+//   brings the knot's block into shared memory with 16-byte cp.async copies
+//   while its warps load their own theta, q2 and alt; all warps share it.
+//   A warp owns one problem, at every N, and ~4 KB of state. The warps of
+//   a block are chosen at launch from N: 1 at the main path's sizes, so
+//   that the problems spread over the SMs and schedulers, 8 from 2048
+//   problems on. A thread is capped at 128 registers, so that 16 warps are
+//   resident on an SM: that costs 2-5% at the main path's sizes, where no
+//   cap would spill nothing, and saves 16% at N = 16128.
+// - Rows are padded to float4, so that every matrix-vector product reads 16
+//   bytes a lane without bank conflicts. Each sum keeps the plain version's
+//   order of terms (see dot_ss).
+// - The 16 x 16 Schur complement is inverted in registers: lane j holds
+//   column j of [S | I], the pivot column travels by shuffle, no barrier.
+//   The pivot row is scaled by one reciprocal: a division a lane would run
+//   its slow path on the exact zeros of the identity half.
+// - The corrector and centering solves run side by side on the two halves
+//   of the warp, three barriers a Schur solve (Dx^-1 Dy1 is folded). The
+//   equality rows of the merit are affine in the step length, so two
+//   products (Rza d) replace one a candidate, and lane c evaluates
+//   candidate c of the line search alone; ballots select.
+// - Sensitivities: lane c solves column c (refinement included) out of
+//   registers, the matrices read as broadcasts from shared memory, and
+//   stores dz[i][c] beside its neighbours'. The columns past 32 go through
+//   the side-by-side solve.
+// These reorderings stay inside the float32 spread of two correct solves:
+// after 1 and 3 iterations every problem agrees with the plain version to
+// ~1e-5 in z (chip_smoke.py and tests/test_torch_cuda.py hold 1e-4).
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -33,8 +70,11 @@
 
 namespace {
 
-constexpr int kWarps = 2;  // problems per block
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxWarps = 8;     // problems per block, at most
+constexpr int kPackThreads = 128;
+
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
 
 __device__ __forceinline__ float pmax(float a, float b) {
   return (a != a || a > b) ? a : b;  // NaN-propagating, like jnp.maximum
@@ -55,371 +95,630 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
+// tau y / dy where dy limits the step (dy > 0), else the largest float.
+__device__ __forceinline__ float step_ratio(float tau, float y, float dy) {
+  const bool pos = dy > 0.0f;
+  const float q = tau * y / (pos ? dy : 1.0f);
+  return pos ? q : FLT_MAX;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Dot product of two 16-byte-aligned shared-memory rows of N floats (N a
+// multiple of 4; the padding of either holds zeros). One accumulator, the
+// terms in order: with the plain version's order of summation the two
+// solves stay together longer (after the main path's 8 iterations 94% of
+// the problems still agree in dz; with 4 accumulators 92% did), and the
+// rows and right-hand sides in flight hide the chain's latency anyway.
+template <int N>
+__device__ __forceinline__ float dot_ss(const float* a, const float* b) {
+  static_assert(N % 4 == 0, "padded rows");
+  float s0 = 0.0f;
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 x = reinterpret_cast<const float4*>(a)[q];
+    const float4 y = reinterpret_cast<const float4*>(b)[q];
+    s0 = fmaf(x.x, y.x, s0);
+    s0 = fmaf(x.y, y.y, s0);
+    s0 = fmaf(x.z, y.z, s0);
+    s0 = fmaf(x.w, y.w, s0);
+  }
+  return s0;
+}
+
+// Dot product of a 16-byte-aligned shared-memory row with N registers.
+template <int N>
+__device__ __forceinline__ float dot_sr(const float* a, const float (&v)[N]) {
+  float s0 = 0.0f;
+#pragma unroll
+  for (int q = 0; q < (N + 3) / 4; ++q) {
+    const float4 x = reinterpret_cast<const float4*>(a)[q];
+    if (4 * q < N) s0 = fmaf(x.x, v[4 * q], s0);
+    if (4 * q + 1 < N) s0 = fmaf(x.y, v[4 * q + 1], s0);
+    if (4 * q + 2 < N) s0 = fmaf(x.z, v[4 * q + 2], s0);
+    if (4 * q + 3 < N) s0 = fmaf(x.w, v[4 * q + 3], s0);
+  }
+  return s0;
+}
+
+// Inverse of an N x N matrix by unpivoted Gauss-Jordan with the float32
+// `tiny` pivot floor (the arithmetic of ops/linsolve.py::gj_inverse, but
+// for the pivot row, scaled by the pivot's reciprocal), held by columns
+// across a full warp: lane j < N enters with column j of the matrix in t,
+// lane N + j with column j of the identity and leaves with column j of the
+// inverse. No shared memory, no barrier.
+template <int N>
+__device__ __forceinline__ void gj_columns(float (&t)[N]) {
+  static_assert(2 * N <= 32, "the tableau's columns must fit a warp");
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float piv = __shfl_sync(kFull, t[k], k);
+    if (fabsf(piv) < FLT_MIN) piv = piv >= 0.0f ? FLT_MIN : -FLT_MIN;
+    // one reciprocal, the same in every lane, and a product: a division
+    // here would take its slow path on the identity half's exact zeros
+    const float row = t[k] * (1.0f / piv);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i != k) {
+        const float g = __shfl_sync(kFull, t[i], k);
+        t[i] = t[i] - g * row;
+      }
+    }
+    t[k] = row;
+  }
+}
+
+// Layouts, in floats. A vector of z- or residual-space is kept padded,
+// [x or dynamics rows: NX (+ zero padding to 4) | y1 or the other equality
+// rows: NY | y2 or bilinear rows: NY], so that each part is 16-byte aligned.
+template <int NX, int NY, int NT, int NC>
+struct Lay {
+  static constexpr int NE = NX + NY;      // equality rows
+  static constexpr int NZ = NX + 2 * NY;  // variables
+  static_assert(NY % 4 == 0 && 2 * NY == 32, "two right-hand sides a warp");
+  static_assert(NE <= 32 && NT > 32 && NT <= 34, "rows and columns per lane");
+  static constexpr int VY1 = pad4(NX), VY2 = VY1 + NY, NV = VY2 + NY;
+  static constexpr int XS = pad4(NX);  // row stride of NX-wide matrices
+  static constexpr int YS = NY + 4;    // of NY-wide ones read a row a lane
+  static constexpr int ES = pad4(NE);
+  // padded slot of variable or row j, and back
+  __host__ __device__ static constexpr int slot(int j) {
+    return j < NX ? j : j + (VY1 - NX);
+  }
+  __host__ __device__ static constexpr bool is_pad(int s) {
+    return s >= NX && s < VY1;
+  }
+  __host__ __device__ static constexpr int unslot(int s) {
+    return s < NX ? s : s - (VY1 - NX);
+  }
+  // one knot's packed constants
+  static constexpr int kRza = 0,                // rz0's equality rows, NE x NV
+      kDxi = kRza + NE * NV,                    // Dx^-1, NX x XS
+      kDy1 = kDxi + NX * XS,                    // NX x YS
+      kDxdy = kDy1 + NX * YS,                   // Dx^-1 Dy1, NX x YS
+      kCai = kDxdy + NX * YS,                   // Rx Dx^-1, NY x XS
+      kSb = kCai + NY * XS,                     // Ry1 - Cai Dy1, NY x NY
+      kRy1d = kSb + NY * NY,                    // diag Ry1
+      kCaibd = kRy1d + NY,                      // diag Cai Dy1
+      kRy2 = kCaibd + NY,                       // diag Ry2
+      kZ0 = kRy2 + NY,                          // NV
+      kR0 = kZ0 + NV,                           // equality rows of r0, ES
+      kTh0 = kR0 + ES,                          // pad4(NT)
+      kRt0 = kTh0 + pad4(NT),                   // rtheta0, NZ x NT
+      kPack = kRt0 + pad4(NZ * NT);
+  // one warp's state
+  static constexpr int wSi = 0,                 // S^-1, NY x YS
+      wY1r = wSi + NY * YS, wY2r = wY1r + NY,
+      wQ = wY2r + NY,                           // Ry2 / y1r
+      wZ = wQ + NY, wZz = wZ + NV,              // z and z - z0
+      wR = wZz + NV,                            // r(z, 0)
+      wDaff = wR + NV,
+      wRhs = wDaff + NV,                        // two right-hand sides
+      wD = wRhs + 2 * NV,                       // two solutions
+      wRes = wD + 2 * NV,                       // two refinement residuals
+      wJd = wRes + 2 * NV,                      // Rza d, two directions, ES
+      wT0 = wJd + 2 * ES, wT1 = wT0 + 2 * NY,
+      wTh = wT1 + 2 * NY,                       // theta - theta0
+      kWarp = wTh + pad4(NT);
+  static_assert(kPack % 4 == 0 && kWarp % 4 == 0, "16-byte blocks");
+};
+
 struct Params {
   const float *z0_lin, *theta0, *r0, *rz0, *rtheta0;  // per knot (K, ...)
   const float *alt, *theta, *q2_init;                   // per problem (N, ...)
+  float* pack;                                          // (K, kPack) scratch
   float *z_out, *rvio_out, *kvio_out, *dz_out;
-  uint8_t *conv_out;
+  uint8_t* conv_out;
   int n, k, iters, refine, max_ls;
   float r_tol, kappa_tol, kappa_floor, gamma_reg, tau_min, tau_max;
 };
 
-template <int NX, int NY, int NT, int NC>
-struct Knot {
-  static constexpr int NE = NX + NY;      // equality rows
-  static constexpr int NZ = NX + 2 * NY;  // variables
-  // shared-memory layout of one warp, in floats
-  static constexpr int kRza = 0, kDxi = kRza + NE * NZ, kDy1 = kDxi + NX * NX,
-      kCai = kDy1 + NX * NY, kCaib = kCai + NY * NX, kRy1 = kCaib + NY * NY,
-      kRy2 = kRy1 + NY * NY, kRbase = kRy2 + NY, kZ0 = kRbase + NE,
-      kZ = kZ0 + NZ, kY1r = kZ + NZ, kY2r = kY1r + NY, kSi = kY2r + NY,
-      kTab = kSi + NY * NY, kGcol = kTab + 2 * NY * NY, kGrow = kGcol + NY,
-      kR = kGrow + 2 * NY, kDaff = kR + NZ, kDcor = kDaff + NZ,
-      kDcen = kDcor + NZ, kRcen = kDcen + NZ, kRhs = kRcen + NZ,
-      kTres = kRhs + NZ, kTcor = kTres + NZ, kZt = kTcor + NZ,
-      kT0 = kZt + NZ, kT1 = kT0 + NY, kT2 = kT1 + NY, kSize = kT2 + NY;
-  static_assert(NE <= 32 && NZ <= 64 && 2 * NY <= 32, "rows must fit a warp");
+// ---- per-knot constants ---------------------------------------------------
 
-  float* s;  // this warp's shared memory
+template <int NX, int NY, int NT, int NC>
+__global__ void __launch_bounds__(kPackThreads) knot_pack_kernel(Params p) {
+  using L = Lay<NX, NY, NT, NC>;
+  constexpr int NE = L::NE, NZ = L::NZ;
+  __shared__ __align__(16) float s[L::kPack];
+  const int kn = blockIdx.x, tid = threadIdx.x;
+  const float* rz = p.rz0 + (size_t)kn * NZ * NZ;
+  for (int e = tid; e < L::kPack; e += kPackThreads) s[e] = 0.0f;
+  __syncthreads();
+  for (int e = tid; e < NE * NZ; e += kPackThreads)
+    s[L::kRza + (e / NZ) * L::NV + L::slot(e % NZ)] = rz[e];
+  for (int e = tid; e < NX * NY; e += kPackThreads)
+    s[L::kDy1 + (e / NY) * L::YS + e % NY] = rz[(e / NY) * NZ + NX + e % NY];
+  if (tid < NY) {
+    s[L::kRy1d + tid] = rz[(NX + tid) * NZ + NX + tid];
+    s[L::kRy2 + tid] = rz[(NX + tid) * NZ + NE + tid];
+  }
+  for (int j = tid; j < NZ; j += kPackThreads)
+    s[L::kZ0 + L::slot(j)] = p.z0_lin[(size_t)kn * NZ + j];
+  if (tid < NE) s[L::kR0 + tid] = p.r0[(size_t)kn * NZ + tid];
+  for (int j = tid; j < NT; j += kPackThreads)
+    s[L::kTh0 + j] = p.theta0[(size_t)kn * NT + j];
+  for (int e = tid; e < NZ * NT; e += kPackThreads)
+    s[L::kRt0 + e] = p.rtheta0[(size_t)kn * NZ * NT + e];
+  if (tid < 32) {  // Dx^-1 in the first warp's registers
+    float t[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+      t[i] = tid < NX ? rz[i * NZ + tid] : (tid - NX == i ? 1.0f : 0.0f);
+    gj_columns<NX>(t);
+    if (tid >= NX && tid < 2 * NX) {
+#pragma unroll
+      for (int i = 0; i < NX; ++i) s[L::kDxi + i * L::XS + tid - NX] = t[i];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < NY * NX; e += kPackThreads) {
+    const int i = e / NX, j = e % NX;
+    float acc = 0.0f;
+    for (int l = 0; l < NX; ++l)
+      acc += rz[(NX + i) * NZ + l] * s[L::kDxi + l * L::XS + j];
+    s[L::kCai + i * L::XS + j] = acc;
+  }
+  for (int e = tid; e < NX * NY; e += kPackThreads) {
+    const int i = e / NY, j = e % NY;
+    float acc = 0.0f;
+    for (int l = 0; l < NX; ++l)
+      acc += s[L::kDxi + i * L::XS + l] * s[L::kDy1 + l * L::YS + j];
+    s[L::kDxdy + i * L::YS + j] = acc;
+  }
+  __syncthreads();
+  for (int e = tid; e < NY * NY; e += kPackThreads) {
+    const int i = e / NY, j = e % NY;
+    float acc = 0.0f;
+    for (int l = 0; l < NX; ++l)
+      acc += s[L::kCai + i * L::XS + l] * s[L::kDy1 + l * L::YS + j];
+    s[L::kSb + e] = rz[(NX + i) * NZ + NX + j] - acc;
+    if (i == j) s[L::kCaibd + i] = acc;
+  }
+  __syncthreads();
+  float4* out = reinterpret_cast<float4*>(p.pack + (size_t)kn * L::kPack);
+  for (int e = tid; e < L::kPack / 4; e += kPackThreads)
+    out[e] = reinterpret_cast<const float4*>(s)[e];
+}
+
+// ---- one warp, one problem ------------------------------------------------
+
+template <int NX, int NY, int NT, int NC>
+struct Solver {
+  using L = Lay<NX, NY, NT, NC>;
+  static constexpr int NE = L::NE, NV = L::NV;
+  static constexpr int VY1 = L::VY1, VY2 = L::VY2;
+
+  const float* pk;  // the knot's packed constants, shared memory
+  float* w;         // this warp's state, shared memory
   int lane;
   float gamma_reg;
 
-  __device__ float* at(int off) const { return s + off; }
-
-  // Inverse of the n x n matrix in the left half of tab (row stride 2n) by
-  // unpivoted Gauss-Jordan with the float32 `tiny` pivot floor; the inverse
-  // is left in the right half.
-  __device__ void gauss_jordan(int n) const {
-    float* tab = at(kTab);
-    float* gcol = at(kGcol);
-    float* grow = at(kGrow);
-    const int w = 2 * n;
-    for (int e = lane; e < n * w; e += 32) {
-      int i = e / w, j = e % w;
-      if (j >= n) tab[e] = (j - n == i) ? 1.0f : 0.0f;
+  // Regularized Schur factorization at z: y1r, y2r, Ry2 / y1r and
+  // si = S^-1 with S = Ry1 - diag(Ry2 y2r / y1r) - Rx Dx^-1 Dy1.
+  __device__ __forceinline__ void factor(float kvio) const {
+    const float reg = gamma_reg * kvio;
+    const int j = lane % NY;
+    const float y1 = pmax(w[L::wZ + VY1 + j], reg);
+    const float y2 = pmax(w[L::wZ + VY2 + j], reg);
+    const float ry2 = pk[L::kRy2 + j];
+    float t[NY];
+    if (lane < NY) {
+      w[L::wY1r + lane] = y1;
+      w[L::wY2r + lane] = y2;
+      w[L::wQ + lane] = ry2 / y1;
+      const float d = pk[L::kRy1d + lane] - ry2 * y2 / y1 - pk[L::kCaibd + lane];
+#pragma unroll
+      for (int i = 0; i < NY; ++i)
+        t[i] = i == lane ? d : pk[L::kSb + i * NY + lane];
+    } else {
+#pragma unroll
+      for (int i = 0; i < NY; ++i) t[i] = i == lane - NY ? 1.0f : 0.0f;
+    }
+    gj_columns<NY>(t);
+    if (lane >= NY) {
+#pragma unroll
+      for (int i = 0; i < NY; ++i) w[L::wSi + i * L::YS + lane - NY] = t[i];
     }
     __syncwarp();
-    for (int k = 0; k < n; ++k) {
-      float piv = tab[k * w + k];
-      if (fabsf(piv) < FLT_MIN) piv = piv >= 0.0f ? FLT_MIN : -FLT_MIN;
-      if (lane < w) grow[lane] = tab[k * w + lane] / piv;
-      if (lane < n) gcol[lane] = tab[lane * w + k];
-      __syncwarp();
-      for (int e = lane; e < n * w; e += 32) {
-        int i = e / w, j = e % w;
-        tab[e] = (i == k) ? grow[j] : tab[e] - gcol[i] * grow[j];
+  }
+
+  // Eliminated solve of the regularized system (RZLin solve,
+  // linearized_solver.jl:424-444) for NR right-hand sides at src, one on
+  // each half of the warp; the solutions replace or are added to dst.
+  template <int NR>
+  __device__ __forceinline__ void schur(const float* src, float* dst,
+                                        bool add) const {
+    const int h = lane / NY, i = lane % NY;
+    const bool act = h < NR;
+    const float* sv = src + h * NV;
+    float* dv = dst + h * NV;
+    float* t0 = w + L::wT0 + h * NY;
+    float* t1 = w + L::wT1 + h * NY;
+    if (act) {
+      const float acc = dot_ss<L::XS>(pk + L::kCai + i * L::XS, sv);
+      const float v = sv[VY1 + i] - w[L::wQ + i] * sv[VY2 + i];
+      t0[i] = acc - v;
+    }
+    __syncwarp();
+    float temp = 0.0f;
+    if (act) {
+      temp = dot_ss<NY>(w + L::wSi + i * L::YS, t0);
+      t1[i] = temp;
+    }
+    __syncwarp();
+    if (act) {
+      if (i < NX) {  // Dx^-1 (rdyn + Dy1 temp), the product with Dy1 folded
+        const float x = dot_ss<L::XS>(pk + L::kDxi + i * L::XS, sv) +
+                        dot_ss<NY>(pk + L::kDxdy + i * L::YS, t1);
+        dv[i] = add ? dv[i] + x : x;
       }
-      __syncwarp();
-    }
-  }
-
-  // r(z, kappa) of the linearized residual into out (NZ).
-  __device__ void residual(const float* z, float kappa, float* out) const {
-    const float* rza = at(kRza);
-    const float* z0 = at(kZ0);
-    if (lane < NE) {
-      float acc = 0.0f;
-      for (int j = 0; j < NZ; ++j) acc += rza[lane * NZ + j] * (z[j] - z0[j]);
-      out[lane] = at(kRbase)[lane] + acc;
-    }
-    if (lane < NY) out[NE + lane] = z[NX + lane] * z[NE + lane] - kappa;
-    __syncwarp();
-  }
-
-  // ||r(z, kappa)||^2 without storing r.
-  __device__ float merit(const float* z, float kappa) const {
-    const float* rza = at(kRza);
-    const float* z0 = at(kZ0);
-    float v = 0.0f;
-    if (lane < NE) {
-      float acc = 0.0f;
-      for (int j = 0; j < NZ; ++j) acc += rza[lane * NZ + j] * (z[j] - z0[j]);
-      float r = at(kRbase)[lane] + acc;
-      v = r * r;
-    }
-    if (lane < NY) {
-      float r = z[NX + lane] * z[NE + lane] - kappa;
-      v += r * r;
-    }
-    return warp_sum(v);
-  }
-
-  // Regularized Schur factorization at z: y1r, y2r and si = S^-1 with
-  // S = Ry1 - diag(Ry2 y2r / y1r) - Rx Dx^-1 Dy1.
-  __device__ void factor(const float* z, float kvio) const {
-    float reg = gamma_reg * kvio;
-    float* y1r = at(kY1r);
-    float* y2r = at(kY2r);
-    if (lane < NY) {
-      y1r[lane] = pmax(z[NX + lane], reg);
-      y2r[lane] = pmax(z[NE + lane], reg);
-    }
-    __syncwarp();
-    float* tab = at(kTab);
-    for (int e = lane; e < NY * NY; e += 32) {
-      int i = e / NY, j = e % NY;
-      float d = (i == j) ? at(kRy2)[i] * y2r[i] / y1r[i] : 0.0f;
-      tab[i * 2 * NY + j] = at(kRy1)[e] - d - at(kCaib)[e];
-    }
-    __syncwarp();
-    gauss_jordan(NY);
-    float* si = at(kSi);
-    for (int e = lane; e < NY * NY; e += 32)
-      si[e] = tab[(e / NY) * 2 * NY + NY + e % NY];
-    __syncwarp();
-  }
-
-  // Eliminated solve of the regularized system for one right-hand side
-  // (RZLin solve, linearized_solver.jl:424-444); out must not alias rhs.
-  __device__ void schur_solve(const float* rhs, float* out) const {
-    const float* y1r = at(kY1r);
-    const float* y2r = at(kY2r);
-    float* t0 = at(kT0);
-    float* t1 = at(kT1);
-    float* t2 = at(kT2);
-    if (lane < NY) {
-      const float* cai = at(kCai);
-      float acc = 0.0f;
-      for (int l = 0; l < NX; ++l) acc += cai[lane * NX + l] * rhs[l];
-      float v = rhs[NX + lane] - (at(kRy2)[lane] / y1r[lane]) * rhs[NE + lane];
-      t0[lane] = acc - v;
-    }
-    __syncwarp();
-    if (lane < NY) {
-      const float* si = at(kSi);
-      float acc = 0.0f;
-      for (int l = 0; l < NY; ++l) acc += si[lane * NY + l] * t0[l];
-      t1[lane] = acc;  // temp
-    }
-    __syncwarp();
-    if (lane < NX) {
-      const float* dy1 = at(kDy1);
-      float acc = 0.0f;
-      for (int l = 0; l < NY; ++l) acc += dy1[lane * NY + l] * t1[l];
-      t2[lane] = rhs[lane] + acc;
-    }
-    __syncwarp();
-    if (lane < NX) {
-      const float* dxi = at(kDxi);
-      float acc = 0.0f;
-      for (int l = 0; l < NX; ++l) acc += dxi[lane * NX + l] * t2[l];
-      out[lane] = acc;
-    }
-    if (lane < NY) {
-      float y = -t1[lane];
-      out[NX + lane] = y;
-      out[NE + lane] = (rhs[NE + lane] - y2r[lane] * y) / y1r[lane];
+      const float y = -temp;
+      const float y2 =
+          (sv[VY2 + i] - w[L::wY2r + i] * y) / w[L::wY1r + i];
+      dv[VY1 + i] = add ? dv[VY1 + i] + y : y;
+      dv[VY2 + i] = add ? dv[VY2 + i] + y2 : y2;
     }
     __syncwarp();
   }
 
-  // Schur solve plus `refine` passes against the factorization's own
+  // NR Schur solves plus `refine` passes against the factorization's own
   // (regularized) operator.
-  __device__ void solve_refined(const float* rhs, float* out, int refine) const {
-    schur_solve(rhs, out);
-    float* tres = at(kTres);
-    float* tcor = at(kTcor);
-    const float* rza = at(kRza);
-    for (int p = 0; p < refine; ++p) {
+  template <int NR>
+  __device__ __forceinline__ void solve(const float* rhs, float* out,
+                                        int refine) const {
+    schur<NR>(rhs, out, false);
+    float* res = w + L::wRes;
+    for (int pass = 0; pass < refine; ++pass) {
       if (lane < NE) {
-        float acc = 0.0f;
-        for (int j = 0; j < NZ; ++j) acc += rza[lane * NZ + j] * out[j];
-        tres[lane] = rhs[lane] - acc;
+        const float* row = pk + L::kRza + lane * NV;
+        const int s = L::slot(lane);
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+          res[r * NV + s] = rhs[r * NV + s] - dot_ss<NV>(row, out + r * NV);
       }
-      if (lane < NY)
-        tres[NE + lane] = rhs[NE + lane] - (at(kY1r)[lane] * out[NE + lane] +
-                                            at(kY2r)[lane] * out[NX + lane]);
+      const int h = lane / NY, i = lane % NY;
+      if (h < NR) {
+        const float* o = out + h * NV;
+        res[h * NV + VY2 + i] =
+            rhs[h * NV + VY2 + i] -
+            (w[L::wY1r + i] * o[VY2 + i] + w[L::wY2r + i] * o[VY1 + i]);
+      }
       __syncwarp();
-      schur_solve(tres, tcor);
-      for (int i = lane; i < NZ; i += 32) out[i] += tcor[i];
-      __syncwarp();
+      schur<NR>(res, out, true);
     }
   }
 
-  // Fraction-to-boundary step over the y1 and y2 blocks of d.
-  __device__ float step_length(const float* z, const float* d, float tau) const {
-    float m = FLT_MAX;
-    if (lane < NY) {
-      float a = d[NX + lane], b = d[NE + lane];
-      float ra = a > 0.0f ? tau * z[NX + lane] / a : FLT_MAX;
-      float rb = b > 0.0f ? tau * z[NE + lane] / b : FLT_MAX;
-      m = pmin(ra, rb);
+  // The refined solve of sensitivity column c, -rtheta0[:, c], by one lane
+  // out of registers; the matrices are broadcasts from shared memory.
+  __device__ __forceinline__ void solve_column(int c, int refine,
+                                               float (&ox)[NX], float (&oy)[NY],
+                                               float (&ow)[NY]) const {
+    const float* rt = pk + L::kRt0 + c;
+#pragma unroll
+    for (int i = 0; i < NX; ++i) ox[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NY; ++i) oy[i] = ow[i] = 0.0f;
+#pragma unroll 1
+    for (int pass = 0; pass <= refine; ++pass) {
+      float a[NX], b[NY], cc[NY];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) a[i] = -rt[i * NT];
+#pragma unroll
+      for (int i = 0; i < NY; ++i) {
+        b[i] = -rt[(NX + i) * NT];
+        cc[i] = -rt[(NE + i) * NT];
+      }
+      if (pass > 0) {  // the residual of the solution so far
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+          const float* row = pk + L::kRza + i * NV;
+          a[i] -= dot_sr<NX>(row, ox) + dot_sr<NY>(row + VY1, oy) +
+                  dot_sr<NY>(row + VY2, ow);
+        }
+#pragma unroll
+        for (int i = 0; i < NY; ++i) {
+          const float* row = pk + L::kRza + (NX + i) * NV;
+          b[i] -= dot_sr<NX>(row, ox) + dot_sr<NY>(row + VY1, oy) +
+                  dot_sr<NY>(row + VY2, ow);
+          cc[i] -= w[L::wY1r + i] * ow[i] + w[L::wY2r + i] * oy[i];
+        }
+      }
+      float t0[NY], t1[NY], t2[NX];
+#pragma unroll
+      for (int i = 0; i < NY; ++i)
+        t0[i] = dot_sr<NX>(pk + L::kCai + i * L::XS, a) -
+                (b[i] - w[L::wQ + i] * cc[i]);
+#pragma unroll
+      for (int i = 0; i < NY; ++i)
+        t1[i] = dot_sr<NY>(w + L::wSi + i * L::YS, t0);
+#pragma unroll
+      for (int i = 0; i < NX; ++i)
+        t2[i] = a[i] + dot_sr<NY>(pk + L::kDy1 + i * L::YS, t1);
+#pragma unroll
+      for (int i = 0; i < NX; ++i)
+        ox[i] += dot_sr<NX>(pk + L::kDxi + i * L::XS, t2);
+#pragma unroll
+      for (int i = 0; i < NY; ++i) {
+        const float y = -t1[i];
+        oy[i] += y;
+        ow[i] += (cc[i] - w[L::wY2r + i] * y) / w[L::wY1r + i];
+      }
     }
-    return pmin(1.0f, warp_min(m));
   }
 };
 
+// Two full blocks an SM cap a thread at 128 registers: the column solve
+// then spills ~0.4 KB a thread, and 16 warps are resident in place of the 8
+// that an uncapped build (~240 registers) would leave.
 template <int NX, int NY, int NT, int NC>
-__global__ void __launch_bounds__(32 * kWarps)
-knot_ip_kernel(Params p) {
-  using K = Knot<NX, NY, NT, NC>;
-  constexpr int NE = K::NE, NZ = K::NZ;
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32;
-  const int n = blockIdx.x * kWarps + warp;
-  if (n >= p.n) return;  // uniform per warp
-  K w{smem + warp * K::kSize, static_cast<int>(threadIdx.x % 32), p.gamma_reg};
-  const int lane = w.lane;
-  const int kn = n % p.k;
-  const float* rz0 = p.rz0 + (size_t)kn * NZ * NZ;
-  const float* rt0 = p.rtheta0 + (size_t)kn * NZ * NT;
+__global__ void __launch_bounds__(32 * kMaxWarps, 2) knot_ip_kernel(Params p) {
+  using L = Lay<NX, NY, NT, NC>;
+  constexpr int NE = L::NE, NZ = L::NZ, NV = L::NV;
+  constexpr int VY1 = L::VY1, VY2 = L::VY2, ES = L::ES;
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kn = blockIdx.x % p.k;
+  const int n = ((blockIdx.x / p.k) * warps + warp) * p.k + kn;
+  const bool live = n < p.n;
 
-  // ---- constant blocks of this knot (RZLin) and the base residual ----
-  float* rza = w.at(K::kRza);
-  for (int e = lane; e < NE * NZ; e += 32) rza[e] = rz0[e];
-  for (int e = lane; e < NX * NY; e += 32)
-    w.at(K::kDy1)[e] = rz0[(e / NY) * NZ + NX + e % NY];
-  for (int e = lane; e < NY * NY; e += 32)
-    w.at(K::kRy1)[e] = rz0[(NX + e / NY) * NZ + NX + e % NY];
-  if (lane < NY) w.at(K::kRy2)[lane] = rz0[(NX + lane) * NZ + NE + lane];
-  float* tab = w.at(K::kTab);
-  for (int e = lane; e < NX * NX; e += 32)
-    tab[(e / NX) * 2 * NX + e % NX] = rz0[(e / NX) * NZ + e % NX];
-  for (int i = lane; i < NZ; i += 32) w.at(K::kZ0)[i] = p.z0_lin[(size_t)kn * NZ + i];
+  // ---- the knot's block, asynchronously; meanwhile this problem's data --
+  const float* gpack = p.pack + (size_t)kn * L::kPack;
+  for (int e = threadIdx.x; e < L::kPack / 4; e += blockDim.x)
+    cp_async16(smem + 4 * e, gpack + 4 * e);
+  const float* pk = smem;
+  float* w = smem + L::kPack + warp * L::kWarp;
+  for (int e = lane; e < L::kWarp; e += 32) w[e] = 0.0f;
+  float th_lo = 0.0f, th_hi = 0.0f, q2 = 0.0f, alt = 0.0f;
+  if (live) {
+    th_lo = p.theta[(size_t)n * NT + lane];
+    if (lane + 32 < NT) th_hi = p.theta[(size_t)n * NT + lane + 32];
+    if (lane < NX) q2 = p.q2_init[(size_t)n * NX + lane];
+    if (lane >= NX && lane < NX + NC) alt = p.alt[(size_t)n * NC + lane - NX];
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (!live) return;  // uniform per warp; no block barrier follows
+
+  Solver<NX, NY, NT, NC> sv{pk, w, lane, p.gamma_reg};
+  float* z = w + L::wZ;
+  float* zz = w + L::wZz;
+  float* r = w + L::wR;
+  float* daff = w + L::wDaff;
+  float* rhs = w + L::wRhs;
+  float* d2 = w + L::wD;
+  float* jd = w + L::wJd;
+  float* th = w + L::wTh;
+  const float* rza_row = pk + L::kRza + lane * NV;  // lanes < NE
+  const int eslot = L::slot(lane);
+
+  // ---- base residual and the initial point ----------------------------
+  th[lane] = th_lo - pk[L::kTh0 + lane];
+  if (lane + 32 < NT) th[lane + 32] = th_hi - pk[L::kTh0 + lane + 32];
+  for (int s = lane; s < NV; s += 32) {
+    if (L::is_pad(s)) continue;
+    const float v = s < NX ? q2 : 1.0f;
+    z[s] = v;
+    zz[s] = v - pk[L::kZ0 + s];
+  }
+  __syncwarp();
+  float rb = 0.0f;  // lanes < NE: r0 + rtheta0 (theta - theta0) + alt
   if (lane < NE) {
-    const float* th = p.theta + (size_t)n * NT;
-    const float* th0 = p.theta0 + (size_t)kn * NT;
+    const float* rt = pk + L::kRt0 + lane * NT;
     float acc = 0.0f;
-    for (int j = 0; j < NT; ++j) acc += rt0[lane * NT + j] * (th[j] - th0[j]);
-    float alt = (lane >= NX && lane < NX + NC) ? p.alt[(size_t)n * NC + lane - NX] : 0.0f;
-    w.at(K::kRbase)[lane] = p.r0[(size_t)kn * NZ + lane] + acc + alt;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc = fmaf(rt[j], th[j], acc);
+    rb = pk[L::kR0 + lane] + acc + alt;
   }
-  __syncwarp();
-  w.gauss_jordan(NX);
-  float* dxi = w.at(K::kDxi);
-  for (int e = lane; e < NX * NX; e += 32) dxi[e] = tab[(e / NX) * 2 * NX + NX + e % NX];
-  __syncwarp();
-  float* cai = w.at(K::kCai);
-  for (int e = lane; e < NY * NX; e += 32) {
-    int i = e / NX, j = e % NX;
-    float acc = 0.0f;
-    for (int l = 0; l < NX; ++l) acc += rza[(NX + i) * NZ + l] * dxi[l * NX + j];
-    cai[e] = acc;
-  }
-  __syncwarp();
-  for (int e = lane; e < NY * NY; e += 32) {
-    int i = e / NY, j = e % NY;
-    float acc = 0.0f;
-    for (int l = 0; l < NX; ++l) acc += cai[i * NX + l] * w.at(K::kDy1)[l * NY + j];
-    w.at(K::kCaib)[e] = acc;
-  }
-  float* z = w.at(K::kZ);
-  for (int i = lane; i < NZ; i += 32)
-    z[i] = i < NX ? p.q2_init[(size_t)n * NX + i] : 1.0f;
-  __syncwarp();
 
-  float* r = w.at(K::kR);
-  float* daff = w.at(K::kDaff);
-  float* dcor = w.at(K::kDcor);
-  float* dcen = w.at(K::kDcen);
-  float* rcen = w.at(K::kRcen);
-  float* rhs = w.at(K::kRhs);
-  float* zt = w.at(K::kZt);
   const int n_ls = p.max_ls + 1;
+  const int h = lane / NY, i = lane % NY;
+  // this lane's slots of a padded vector: lane and, where it exists, s1
+  static_assert(L::VY1 <= 32 && NV <= 64, "two slots a lane");
+  const int s1 = lane + 32;
+  const bool pad0 = L::is_pad(lane), has1 = s1 < NV;
   bool done = false;
+  float req = 0.0f, rbl = 0.0f, rvio = 0.0f, kvio = 0.0f;
+
+  // r(z, 0) into r, its row in this lane's req / rbl, and the violations
+  auto residual = [&]() {
+    if (lane < NE) {
+      req = rb + dot_ss<NV>(rza_row, zz);
+      r[eslot] = req;
+    }
+    if (lane < NY) {
+      rbl = z[VY1 + lane] * z[VY2 + lane];
+      r[VY2 + lane] = rbl;
+    }
+    rvio = warp_max(lane < NE ? fabsf(req) : 0.0f);
+    kvio = warp_max(lane < NY ? fabsf(rbl) : 0.0f);
+  };
 
   for (int it = 0; it < p.iters; ++it) {
-    w.residual(z, 0.0f, r);
-    float rvio = warp_max(lane < NE ? fabsf(r[lane]) : 0.0f);
-    float kvio = warp_max(lane < NY ? fabsf(r[NE + lane]) : 0.0f);
-    bool done_now = (rvio <= p.r_tol) && (kvio <= p.kappa_tol);
+    residual();
+    const bool done_now = (rvio <= p.r_tol) && (kvio <= p.kappa_tol);
+    sv.factor(kvio);
+    sv.template solve<1>(r, daff, p.refine);
 
-    w.factor(z, kvio);
-    w.solve_refined(r, daff, p.refine);
-    float a_aff = w.step_length(z, daff, 1.0f);
-    float yy = 0.0f, yya = 0.0f;
-    if (lane < NY) {
-      float y1 = z[NX + lane], y2 = z[NE + lane];
-      yy = y1 * y2;
-      yya = (y1 - a_aff * daff[NX + lane]) * (y2 - a_aff * daff[NE + lane]);
+    // affine step length, centering parameter
+    // (both halves of the warp work on the same NY pairs: no lane divides
+    // by a dummy zero, which would take the division's slow path)
+    const float y1 = z[VY1 + i], y2 = z[VY2 + i];
+    const float a1 = daff[VY1 + i], a2 = daff[VY2 + i];
+    float m = pmin(step_ratio(1.0f, y1, a1), step_ratio(1.0f, y2, a2));
+    const float a_aff = pmin(1.0f, warp_min(m));
+    const float yy = lane < NY ? y1 * y2 : 0.0f;
+    const float yya = lane < NY ? (y1 - a_aff * a1) * (y2 - a_aff * a2) : 0.0f;
+    const float mu = warp_sum(yy) / NY;
+    const float mu_aff = warp_sum(yya) / NY;
+    const float ratio = mu_aff / pmax(mu, FLT_MIN);
+    const float sig = pmin(pmax(ratio, 0.0f), 1.0f);
+    const float kappa_t = pmax(sig * sig * sig * mu, p.kappa_floor);
+
+    // corrector (first) and centering (second) right-hand sides
+    float m0 = 0.0f;
+    for (int s = lane; s < NV; s += 32) {
+      if (L::is_pad(s)) continue;
+      const float rc = s < VY2 ? r[s] : r[s] - kappa_t;
+      rhs[NV + s] = rc;
+      rhs[s] = s < VY2 ? rc : rc + daff[s - NY] * daff[s];
+      m0 = fmaf(rc, rc, m0);
     }
-    float mu = warp_sum(yy) / NY;
-    float mu_aff = warp_sum(yya) / NY;
-    float ratio = mu_aff / pmax(mu, FLT_MIN);
-    float sig = pmin(pmax(ratio, 0.0f), 1.0f);
-    float sigma = sig * sig * sig;
-    float kappa_t = pmax(sigma * mu, p.kappa_floor);
+    const float merit0 = warp_sum(m0);
+    __syncwarp();
+    sv.template solve<2>(rhs, d2, p.refine);
 
-    // r(z, kappa_t) and the corrector right-hand side
-    for (int i = lane; i < NZ; i += 32) {
-      float rc = i < NE ? r[i] : r[i] - kappa_t;
-      rcen[i] = rc;
-      rhs[i] = i < NE ? rc : rc + daff[i - NY] * daff[i];
+    // fraction-to-boundary step of each direction on its half of the warp
+    const float vmax = pmax(rvio, kvio);
+    const float tau = pmin(pmax(1.0f - vmax * vmax, p.tau_min), p.tau_max);
+    {
+      const float* d = d2 + h * NV;
+      const float b1 = d[VY1 + i], b2 = d[VY2 + i];
+      m = pmin(step_ratio(tau, z[VY1 + i], b1), step_ratio(tau, z[VY2 + i], b2));
+      for (int o = NY / 2; o; o >>= 1) m = pmin(m, __shfl_xor_sync(kFull, m, o));
+      m = pmin(1.0f, m);
+    }
+    const float a_cor = __shfl_sync(kFull, m, 0);
+    const float a_cen = __shfl_sync(kFull, m, NY);
+
+    // the equality rows of r(z - a d) are r - a Rza d
+    if (lane < NE) {
+      jd[lane] = dot_ss<NV>(rza_row, d2);
+      jd[ES + lane] = dot_ss<NV>(rza_row, d2 + NV);
     }
     __syncwarp();
-    w.solve_refined(rhs, dcor, p.refine);
-    w.solve_refined(rcen, dcen, p.refine);
 
-    float vmax = pmax(rvio, kvio);
-    float tau = pmin(pmax(1.0f - vmax * vmax, p.tau_min), p.tau_max);
-    float a0[2] = {w.step_length(z, dcor, tau), w.step_length(z, dcen, tau)};
-    float merit0 = warp_sum(lane < NZ ? rcen[lane] * rcen[lane] : 0.0f) +
-                   warp_sum(lane + 32 < NZ ? rcen[lane + 32] * rcen[lane + 32] : 0.0f);
-
-    // two-direction backtracking line search: the first passing candidate
-    // wins; if none passes, the first minimum-merit one (NaN counts as the
-    // minimum, as jnp.argmin)
-    int pick_ok = -1, pick_min = 0;
-    float best = INFINITY;
-    bool seen_nan = false;
-    for (int c = 0; c < 2 * n_ls; ++c) {
-      const float* d = c < n_ls ? dcor : dcen;
-      float a = a0[c / n_ls] * ldexpf(1.0f, -(c % n_ls));
-      for (int i = lane; i < NZ; i += 32) zt[i] = z[i] - a * d[i];
-      __syncwarp();
-      float m = w.merit(zt, kappa_t);
-      __syncwarp();
-      if (pick_ok < 0 && m < (1.0f - 1.0e-3f * a) * merit0) pick_ok = c;
-      if (!seen_nan) {
-        if (m != m) {
-          seen_nan = true;
-          pick_min = c;
-        } else if (m < best) {
-          best = m;
-          pick_min = c;
-        }
+    // two-direction backtracking line search, lane c on candidate c: the
+    // first passing candidate wins; if none passes, the first minimum-merit
+    // one (NaN counts as the minimum, as jnp.argmin)
+    const bool valid = lane < 2 * n_ls;
+    const int dir = valid ? lane / n_ls : 0;
+    const float a = (dir ? a_cen : a_cor) *
+                    __int_as_float((127 - lane % n_ls) << 23);  // 2^-halvings
+    float mer;
+    {
+      const float* jv = jd + dir * ES;
+      const float* d = d2 + dir * NV;
+      float q0 = 0.0f, q1 = 0.0f;
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const float v = r[L::slot(e)] - a * jv[e];
+        if (e % 2) q1 = fmaf(v, v, q1); else q0 = fmaf(v, v, q0);
+      }
+#pragma unroll
+      for (int e = 0; e < NY; ++e) {
+        const float v = (z[VY1 + e] - a * d[VY1 + e]) *
+                        (z[VY2 + e] - a * d[VY2 + e]) - kappa_t;
+        if (e % 2) q1 = fmaf(v, v, q1); else q0 = fmaf(v, v, q0);
+      }
+      mer = q0 + q1;
+    }
+    int pick;
+    const unsigned ok =
+        __ballot_sync(kFull, valid && mer < (1.0f - 1.0e-3f * a) * merit0);
+    if (ok) {
+      pick = __ffs(ok) - 1;
+    } else {
+      const unsigned nans = __ballot_sync(kFull, valid && mer != mer);
+      if (nans) {
+        pick = __ffs(nans) - 1;
+      } else {
+        const float best = warp_min(valid ? mer : INFINITY);
+        pick = __ffs(__ballot_sync(kFull, valid && mer == best)) - 1;
       }
     }
-    int pick = pick_ok >= 0 ? pick_ok : pick_min;
-    const float* d = pick < n_ls ? dcor : dcen;
-    float a = a0[pick / n_ls] * ldexpf(1.0f, -(pick % n_ls));
-    bool finite = true;
-    for (int i = lane; i < NZ; i += 32) {
-      zt[i] = z[i] - a * d[i];
-      finite = finite && isfinite(zt[i]);
+    const float a_pick = __shfl_sync(kFull, a, pick);
+    const float* d = d2 + (pick / n_ls) * NV;
+    const float zn0 = pad0 ? 0.0f : z[lane] - a_pick * d[lane];
+    const float zn1 = has1 ? z[s1] - a_pick * d[s1] : 0.0f;
+    const bool finite = __all_sync(kFull, isfinite(zn0) && isfinite(zn1));
+    __syncwarp();  // every lane has read z
+    // keep the last finite iterate; converged problems freeze
+    if (!(done || done_now || !finite)) {
+      if (!pad0) {
+        z[lane] = zn0;
+        zz[lane] = zn0 - pk[L::kZ0 + lane];
+      }
+      if (has1) {
+        z[s1] = zn1;
+        zz[s1] = zn1 - pk[L::kZ0 + s1];
+      }
     }
-    finite = __all_sync(kFull, finite);
-    // keep the last finite iterate; converged lanes freeze
-    bool keep = done || done_now || !finite;
-    __syncwarp();
-    if (!keep)
-      for (int i = lane; i < NZ; i += 32) z[i] = zt[i];
     done = done || done_now;
     __syncwarp();
   }
 
-  // ---- final residual, flags and the sensitivity solve ----------------
-  w.residual(z, 0.0f, r);
-  float rvio = warp_max(lane < NE ? fabsf(r[lane]) : 0.0f);
-  float kvio = warp_max(lane < NY ? fabsf(r[NE + lane]) : 0.0f);
-  bool converged = (rvio <= p.r_tol) && (kvio <= p.kappa_tol);
-  w.factor(z, kvio);
-  float* dz = p.dz_out + (size_t)n * NZ * NT;
+  // ---- final residual, flags and the sensitivity solve ------------------
+  residual();
+  const bool converged = (rvio <= p.r_tol) && (kvio <= p.kappa_tol);
+  sv.factor(kvio);
+  constexpr int NL = NT - 32;  // columns past the warp's lanes
   bool finite = true;
-  for (int c = 0; c < NT; ++c) {
-    for (int i = lane; i < NZ; i += 32) rhs[i] = -rt0[i * NT + c];
-    __syncwarp();
-    w.solve_refined(rhs, dcor, p.refine);
-    for (int i = lane; i < NZ; i += 32) {
-      dz[i * NT + c] = dcor[i];
-      finite = finite && isfinite(dcor[i]);
+  if (NL > 0) {
+    for (int s = lane; s < NV; s += 32) {
+      if (L::is_pad(s)) continue;
+#pragma unroll
+      for (int c = 0; c < NL; ++c)
+        rhs[c * NV + s] = -pk[L::kRt0 + L::unslot(s) * NT + 32 + c];
     }
     __syncwarp();
+    sv.template solve<NL>(rhs, d2, p.refine);
+    for (int s = lane; s < NV; s += 32) {
+      if (L::is_pad(s)) continue;
+#pragma unroll
+      for (int c = 0; c < NL; ++c) finite = finite && isfinite(d2[c * NV + s]);
+    }
   }
-  bool dz_bad = !__all_sync(kFull, finite);
-  if (dz_bad)
-    for (int e = lane; e < NZ * NT; e += 32) dz[e] = 0.0f;
-  for (int i = lane; i < NZ; i += 32) p.z_out[(size_t)n * NZ + i] = z[i];
+  float ox[NX], oy[NY], ow[NY];
+  sv.solve_column(lane, p.refine, ox, oy, ow);
+#pragma unroll
+  for (int e = 0; e < NX; ++e) finite = finite && isfinite(ox[e]);
+#pragma unroll
+  for (int e = 0; e < NY; ++e)
+    finite = finite && isfinite(oy[e]) && isfinite(ow[e]);
+  const bool dz_bad = !__all_sync(kFull, finite);
+  float* dz = p.dz_out + (size_t)n * NZ * NT;
+#pragma unroll
+  for (int e = 0; e < NX; ++e) dz[e * NT + lane] = dz_bad ? 0.0f : ox[e];
+#pragma unroll
+  for (int e = 0; e < NY; ++e) {
+    dz[(NX + e) * NT + lane] = dz_bad ? 0.0f : oy[e];
+    dz[(NE + e) * NT + lane] = dz_bad ? 0.0f : ow[e];
+  }
+  for (int s = lane; s < NV; s += 32) {
+    if (L::is_pad(s)) continue;
+#pragma unroll
+    for (int c = 0; c < NL; ++c)
+      dz[L::unslot(s) * NT + 32 + c] = dz_bad ? 0.0f : d2[c * NV + s];
+    p.z_out[(size_t)n * NZ + L::unslot(s)] = z[s];
+  }
   if (lane == 0) {
     p.conv_out[n] = (converged && !dz_bad) ? 1 : 0;
     p.rvio_out[n] = rvio;
@@ -428,33 +727,78 @@ knot_ip_kernel(Params p) {
 }
 
 template <int NX, int NY, int NT, int NC>
-int launch(const Params& p, cudaStream_t stream) {
-  using K = Knot<NX, NY, NT, NC>;
-  const size_t smem = sizeof(float) * K::kSize * kWarps;
-  const int blocks = (p.n + kWarps - 1) / kWarps;
-  knot_ip_kernel<NX, NY, NT, NC><<<blocks, 32 * kWarps, smem, stream>>>(p);
+int launch_pack(const Params& p, cudaStream_t stream) {
+  knot_pack_kernel<NX, NY, NT, NC><<<p.k, kPackThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Warps (problems) of a block: one while the problems are few, so that they
+// spread over every SM and scheduler; kMaxWarps at large N, where the knot's
+// block is then fetched once for several problems.
+int block_warps(int n) { return n < 2048 ? 1 : kMaxWarps; }
+
+template <int NX, int NY, int NT, int NC>
+int launch(const Params& p, cudaStream_t stream) {
+  using L = Lay<NX, NY, NT, NC>;
+  if (p.n % p.k != 0 || p.max_ls < 0 || 2 * (p.max_ls + 1) > 32) return -2;
+  const int warps = block_warps(p.n);
+  int err = launch_pack<NX, NY, NT, NC>(p, stream);
+  if (err != 0) return err;
+  static_assert(sizeof(float) * (L::kPack + kMaxWarps * L::kWarp) <= 48 * 1024,
+                "past 48 KB the kernel must opt in to its dynamic shared "
+                "memory (cudaFuncAttributeMaxDynamicSharedMemorySize)");
+  const size_t smem = sizeof(float) * (L::kPack + warps * L::kWarp);
+  const int per_knot = p.n / p.k;
+  const int blocks = p.k * ((per_knot + warps - 1) / warps);
+  knot_ip_kernel<NX, NY, NT, NC><<<blocks, 32 * warps, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool quadruped(int nx, int ny, int nt, int nc) {
+  return nx == 11 && ny == 16 && nt == 34 && nc == 4;
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Returns the cudaGetLastError()
-// code of the launch, or -1 for dimensions this build does not hold.
+// Plain C entry points (bound with ctypes). The launches return their
+// cudaGetLastError() code, -1 for dimensions this build does not hold and
+// -2 for arguments the kernel does not take.
+
+// Floats of one knot's packed block.
+extern "C" int knot_ip_pack_floats(int nx, int ny, int nt, int nc) {
+  if (quadruped(nx, ny, nt, nc)) return Lay<11, 16, 34, 4>::kPack;
+  return -1;
+}
+
+// The per-knot constants alone: (K, pack_floats) into `pack`.
+extern "C" int knot_ip_pack_launch(
+    const float* z0_lin, const float* theta0, const float* r0, const float* rz0,
+    const float* rtheta0, float* pack, int k, int nx, int ny, int nt, int nc,
+    void* stream) {
+  Params p{};
+  p.z0_lin = z0_lin, p.theta0 = theta0, p.r0 = r0, p.rz0 = rz0;
+  p.rtheta0 = rtheta0, p.pack = pack, p.k = k;
+  if (k == 0) return 0;
+  if (quadruped(nx, ny, nt, nc))
+    return launch_pack<11, 16, 34, 4>(p, static_cast<cudaStream_t>(stream));
+  return -1;
+}
+
+// The whole solve: the per-knot constants into `pack`, then the problems.
 extern "C" int knot_ip_launch(
     const float* z0_lin, const float* theta0, const float* r0, const float* rz0,
     const float* rtheta0, const float* alt, const float* theta,
-    const float* q2_init, float* z_out, uint8_t* conv_out, float* rvio_out,
-    float* kvio_out, float* dz_out, int n, int k, int nx, int ny, int nt,
-    int nc, int iters, int refine, int max_ls, float r_tol, float kappa_tol,
-    float kappa_floor, float gamma_reg, float tau_min, float tau_max,
-    void* stream) {
-  Params p{z0_lin, theta0, r0, rz0, rtheta0, alt, theta, q2_init,
+    const float* q2_init, float* pack, float* z_out, uint8_t* conv_out,
+    float* rvio_out, float* kvio_out, float* dz_out, int n, int k, int nx,
+    int ny, int nt, int nc, int iters, int refine, int max_ls, float r_tol,
+    float kappa_tol, float kappa_floor, float gamma_reg, float tau_min,
+    float tau_max, void* stream) {
+  Params p{z0_lin, theta0, r0, rz0, rtheta0, alt, theta, q2_init, pack,
            z_out, rvio_out, kvio_out, dz_out, conv_out,
            n, k, iters, refine, max_ls,
            r_tol, kappa_tol, kappa_floor, gamma_reg, tau_min, tau_max};
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nx == 11 && ny == 16 && nt == 34 && nc == 4)  // the quadruped
-    return launch<11, 16, 34, 4>(p, s);
+  if (quadruped(nx, ny, nt, nc)) return launch<11, 16, 34, 4>(p, s);
   return -1;
 }

@@ -92,7 +92,7 @@ class HotPathConfig:
 
 def quadruped_tracking_weights(dims, h_mpc, dtype, device=None):
     """The flat-ground quadruped objective (mpc_quadruped.jl:23-27 /
-    examples/quadruped/flat.jl:31-36)."""
+    examples/quadruped/flat.jl:31-36), on ``device``, by default the GPU."""
     from .control.objective import tracking_objective
     qw = 1e-2 * np.array([1.0, 0.02, 0.25] + [0.25] * (dims.nq - 3))
     return tracking_objective(
@@ -119,9 +119,11 @@ def conf_initial_states(model, ref):
 
 
 def make_quadruped_rollout(cfg: HotPathConfig, steps: int, dtype,
-                           device="cpu"):
+                           device=None):
     """Build (rollout_fn, ref, model, env, dims) for the flat-ground
-    quadruped Monte-Carlo program; ``ref`` lies on ``device``.
+    quadruped Monte-Carlo program; ``ref`` lies on ``device``, by default
+    the GPU (``device.default_device`` raises where there is none; pass
+    ``device="cpu"`` to run on the CPU).
 
     ``rollout_fn(q1s, v1s)`` runs one closed-loop rollout of ``steps`` sim
     steps for every lane of the batch ``(B, nq)``, on the device of its
@@ -130,11 +132,13 @@ def make_quadruped_rollout(cfg: HotPathConfig, steps: int, dtype,
     from .control.implicit_dynamics import CONFIGURATION
     from .control.rollout import mpc_rollout
     from .control.trajectory import from_gait
+    from .device import resolve_device
     from .env import flat_2d_lc
     from .models.base import dims_of
     from .models.quadruped import quadruped as model
     from .utils.gaits import load_gait
 
+    device = resolve_device(device)
     env = flat_2d_lc
     dims = dims_of(model, env)
     gait = load_gait("quadruped", "gait2")

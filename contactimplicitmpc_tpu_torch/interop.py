@@ -5,7 +5,8 @@ gait, the linearization data, the objective weights and the options. These
 functions turn the JAX package's objects into the port's. Arrays arrive as
 anything ``numpy.asarray`` takes (the caller converts JAX arrays on its
 side), options as objects whose attributes are plain Python values; this
-module never imports JAX.
+module never imports JAX. The tensors are made on ``device``, by default
+the GPU (``device.default_device``).
 """
 
 from __future__ import annotations
@@ -19,12 +20,14 @@ from .control.linearized import LinearizedData
 from .control.objective import TrackingObjective
 from .control.trajectory import ContactTraj
 from .control.newton import NewtonOptions
+from .device import resolve_device
 from .hotpath import HotPathConfig
 from .sim.interior_point import IPOptions
 
 
 def tensors(cls, src, dtype=torch.float64, device=None):
     """A NamedTuple of tensors ``cls`` from ``src``'s same-named fields."""
+    device = resolve_device(device)
     return cls(**{k: torch.tensor(np.asarray(getattr(src, k)),
                                      dtype=dtype, device=device)
                   for k in cls._fields})

@@ -33,6 +33,27 @@ class FixedIPResult(NamedTuple):
     dz: torch.Tensor         # (..., nz, nθ) sensitivities
 
 
+class KnotBlocks(NamedTuple):
+    """The constant blocks of a knot's regularized Schur solve (RZLin,
+    linearized_solver.jl:224-304); they depend on ``rz0`` alone."""
+    dxi: torch.Tensor   # (..., nx, nx)  Dx⁻¹
+    dy1: torch.Tensor   # (..., nx, ny)
+    cai: torch.Tensor   # (..., ny, nx)  Rx Dx⁻¹
+    caib: torch.Tensor  # (..., ny, ny)  Rx Dx⁻¹ Dy1
+    ry1: torch.Tensor   # (..., ny, ny)
+    ry2: torch.Tensor   # (..., ny)      diagonal of the y2 block
+
+
+def knot_blocks(dims: Dims, rz0) -> KnotBlocks:
+    nx, ne = dims.nx, dims.nx + dims.ny
+    dy1 = rz0[..., :nx, nx:ne]
+    dxi = gj_inverse(rz0[..., :nx, :nx])
+    cai = rz0[..., nx:ne, :nx] @ dxi
+    return KnotBlocks(
+        dxi=dxi, dy1=dy1, cai=cai, caib=cai @ dy1, ry1=rz0[..., nx:ne, nx:ne],
+        ry2=torch.diagonal(rz0[..., nx:ne, ne:], dim1=-2, dim2=-1))
+
+
 def linearized_ip_fixed(dims: Dims, z0_lin, theta0, r0, rz0, rtheta0,
                         alt, theta, q2_init, opts: IPOptions,
                         iters: int = 10) -> FixedIPResult:
@@ -42,15 +63,7 @@ def linearized_ip_fixed(dims: Dims, z0_lin, theta0, r0, rz0, rtheta0,
     ne = nx + ny
     tiny = torch.finfo(dtype).tiny
 
-    # constant blocks (RZLin, linearized_solver.jl:224-304)
-    dx = rz0[..., :nx, :nx]
-    dy1 = rz0[..., :nx, nx:ne]
-    rx = rz0[..., nx:ne, :nx]
-    ry1 = rz0[..., nx:ne, nx:ne]
-    ry2 = torch.diagonal(rz0[..., nx:ne, ne:], dim1=-2, dim2=-1)
-    dxi = gj_inverse(dx)
-    cai = rx @ dxi
-    caib = cai @ dy1
+    dxi, dy1, cai, caib, ry1, ry2 = knot_blocks(dims, rz0)
 
     # affine residual pieces: r_affine(z) = base + rz0_affrows (z − z0)
     lead = theta.shape[:-1]

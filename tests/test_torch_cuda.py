@@ -1,6 +1,6 @@
-"""The hand-written CUDA knot kernel (``csrc/knot_ip.cu``) against its
-plain PyTorch version on the card, and the checks its wrapper makes before
-any launch.
+"""The hand-written CUDA knot kernel (``csrc/knot_ip.cu``) and its per-knot
+prologue against their plain PyTorch versions on the card, and the checks
+the wrapper makes before any launch.
 
 The tests that need the card are marked ``cuda`` and skip where CUDA is
 absent. This file imports neither JAX nor the JAX package, so it also runs
@@ -112,12 +112,15 @@ def test_launch_checks_inputs_first(spoil):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes,trials,stages", [(16, TRIALS, STAGES),
+                                                 (16, 1, STAGES),
                                                  (1, 1, 3)])
 @pytest.mark.parametrize("iters", [1, 3])
 def test_kernel_matches_plain_early(card, lanes, trials, stages, iters):
     """After 1 and 3 iterations, before two float32 solves can part: every
     problem to 1e-4 in z and 1e-3 of its scale in dz, the same converged
-    flags; one launch counted."""
+    flags; one launch counted. The shapes are the main path's two (1008
+    problems in the line search, 144 at the start of a period) and a
+    3-knot one."""
     problems = knot_problems(card, lanes, trials, stages)
     before = knot_ip.launches
     out, want = both(problems, iters)
@@ -140,6 +143,96 @@ def test_kernel_matches_plain_main_iterations(card):
     assert float((err[:, :DIMS.nq].amax(dim=1) < 1e-3).float().mean()) >= 0.95
     assert float((err.amax(dim=1) < 5e-3).float().mean()) >= 0.85
     assert float((dz_rel(out, want)[conv] < 1e-2).float().mean()) >= 0.93
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,trials,stages", [(229, 1, STAGES),
+                                                 (457, 1, STAGES),
+                                                 (911, 1, STAGES),
+                                                 (911, 3, 3)])
+def test_ragged_blocks(card, lanes, trials, stages):
+    """From 2048 problems on a block takes 8 problems of a knot (the
+    kernel's ``block_warps``), and these batches give every knot a number
+    of problems that is no multiple of 8: the last block of each knot is
+    part empty. Every problem still agrees with the plain version as the
+    small batches do."""
+    problems = knot_problems(card, lanes, trials, stages)
+    assert lanes * trials * stages >= 2048 and (lanes * trials) % 8 != 0
+    out, want = both(problems, 3)
+    assert torch.isfinite(out.z).all() and torch.isfinite(out.dz).all()
+    assert float((out.z - want.z).abs().max()) < 1e-4
+    assert float(dz_rel(out, want).max()) < 1e-3
+    assert bool((out.converged == want.converged).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poison", [float("nan"), 1e30])
+def test_poisoned_theta_stays_in_its_problem(card, poison):
+    """One problem's θ is poisoned (NaN, or a huge finite value): the
+    kernel keeps a finite z there and flags it unconverged, as the plain
+    version does (for NaN both keep the initial point and the same dz), and
+    every other problem comes out bit for bit as without the poison."""
+    problems = knot_problems(card, 4, 1, STAGES)
+    clean = knot_ip(DIMS, *problems, OPTS, CFG.fixed_ip_iters)
+    theta = problems[6].clone()
+    theta[1, 0, 4, 7] = poison
+    bad = problems[:6] + [theta, problems[7]]
+    out, want = both(bad, CFG.fixed_ip_iters)
+    hit = torch.zeros_like(out.converged)
+    hit[1, 0, 4] = True
+    assert torch.isfinite(out.z).all() and torch.isfinite(out.dz).all()
+    assert not bool(out.converged[hit]) and not bool(want.converged[hit])
+    if poison != poison:
+        z_init = torch.cat([problems[7][hit],
+                            torch.ones((1, DIMS.nz - DIMS.nq), device=card)], 1)
+        assert torch.equal(out.z[hit], z_init)
+        assert torch.equal(want.z[hit], z_init)
+        assert float(dz_rel(out, want)[hit]) < 1e-3
+    assert bool(((want.dz[hit] == 0) <= (out.dz[hit] == 0)).all())
+    for a, b in zip(out, clean):
+        assert torch.equal(a[~hit], b[~hit])
+
+
+@pytest.mark.cuda
+def test_poisoned_knot_zeroes_its_sensitivities(card):
+    """A NaN column in one knot's rθ0: every problem of that knot gets
+    dz = 0 and is flagged, z stays finite, exactly as the plain version
+    gives; the other knots' problems are untouched."""
+    problems = knot_problems(card, 3, 2, STAGES)
+    clean = knot_ip(DIMS, *problems, OPTS, CFG.fixed_ip_iters)
+    rtheta0 = problems[4].clone()
+    rtheta0[2, :, 20] = float("nan")
+    bad = problems[:4] + [rtheta0] + problems[5:]
+    out, want = both(bad, CFG.fixed_ip_iters)
+    assert torch.isfinite(out.z).all() and torch.isfinite(out.dz).all()
+    assert not bool(out.dz[:, :, 2].any()) and not bool(want.dz[:, :, 2].any())
+    assert not bool(out.converged[:, :, 2].any())
+    assert not bool(want.converged[:, :, 2].any())
+    assert torch.equal(out.z[:, :, 2], want.z[:, :, 2])
+    keep = torch.arange(STAGES, device=card) != 2
+    for a, b in zip(out, clean):
+        assert torch.equal(a[:, :, keep], b[:, :, keep])
+
+
+@pytest.mark.cuda
+def test_prologue_packs_knot_constants(card):
+    """The kernel's prologue against the plain packing of the same
+    constants: copies exact, the products and the inverse to 1e-5 of each
+    block's largest entry, zeros in all padding."""
+    knots = knot_problems(card, 1)[:5]
+    got = knot_mod.pack_knots(DIMS, *knots)
+    want = knot_mod.pack_knots_plain(DIMS, *knots)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (STAGES, knot_mod.pack_layout(DIMS).size)
+    exact = {"rza", "dy1", "ry1d", "ry2", "z0", "r0", "theta0", "rtheta0"}
+    blocks = knot_mod.pack_blocks(DIMS, want)
+    for name, a in knot_mod.pack_blocks(DIMS, got).items():
+        b = blocks[name]
+        if name in exact:
+            assert torch.equal(a, b), name
+        else:
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
+    assert bool((got[want == 0] == 0).all())
 
 
 @pytest.mark.cuda

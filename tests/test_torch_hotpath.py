@@ -56,7 +56,8 @@ def runs():
     want = {k: np.asarray(v) for k, v in want._asdict().items()}
 
     cfg = interop.hotpath_config(jcfg)
-    roll, ref, _, _, _ = make_quadruped_rollout(cfg, STEPS, torch.float64)
+    roll, ref, _, _, _ = make_quadruped_rollout(cfg, STEPS, torch.float64,
+                                                device="cpu")
     got = roll(torch.as_tensor(q1s), torch.as_tensor(v1s))
     got = {k: v.numpy() for k, v in got._asdict().items()}
     return cfg, ref, got, want
@@ -117,7 +118,7 @@ def test_conf_lanes_are_test_hotpath_lanes():
     want = np.asarray(want.at[0].set(q1.astype(dt)))
 
     _, ref, model, _, _ = make_quadruped_rollout(HotPathConfig(), STEPS,
-                                                 torch.float32)
+                                                 torch.float32, device="cpu")
     q1s, v1s = conf_initial_states(model, ref)
     np.testing.assert_allclose(q1s.numpy(), want, rtol=0, atol=1e-6)
     np.testing.assert_allclose(v1s.numpy(), np.broadcast_to(v1, want.shape),

@@ -29,8 +29,12 @@ from contactimplicitmpc_tpu_torch.control.linearized import \
 from contactimplicitmpc_tpu_torch.control.trajectory import from_gait
 from contactimplicitmpc_tpu_torch.models.base import dims_of
 from contactimplicitmpc_tpu_torch.models.quadruped import quadruped
-from contactimplicitmpc_tpu_torch.ops.fixed_ip import linearized_ip_fixed
-from contactimplicitmpc_tpu_torch.ops.knot_ip import knot_ip
+from contactimplicitmpc_tpu_torch.ops.fixed_ip import (knot_blocks,
+                                                       linearized_ip_fixed)
+from contactimplicitmpc_tpu_torch.ops.knot_ip import (knot_ip, pack_blocks,
+                                                      pack_knots,
+                                                      pack_knots_plain,
+                                                      pack_layout, work)
 from contactimplicitmpc_tpu_torch.sim.interior_point import IPOptions
 from contactimplicitmpc_tpu_torch.utils.gaits import load_gait
 
@@ -50,7 +54,8 @@ def knots():
     """(dims, numpy inputs) for the 60 gait2 knots, float64."""
     dims = dims_of(quadruped, pt.flat_2d_lc)
     ref = from_gait(quadruped, pt.flat_2d_lc, load_gait("quadruped", "gait2"),
-                    update_friction=True, dtype=torch.float64)
+                    update_friction=True, dtype=torch.float64,
+                    device="cpu")
     lin = linearize_trajectory(quadruped, pt.flat_2d_lc, ref, KAPPA)
     n = ref.horizon
     theta = ref.theta.numpy() + 0.003 * np.random.default_rng(0) \
@@ -182,3 +187,104 @@ def test_nonfinite_guards_match_jax(knots):
     np.testing.assert_array_equal(np.isfinite(got["rvio"]),
                                   np.isfinite(want["rvio"]))
 
+
+
+def test_work_count_matches_hand_count(knots):
+    """The operations and bytes of one call, for the quadruped's dims at
+    the main path's shape (1008 problems over 9 knots, 8 iterations, 1
+    refinement pass, 3 halvings), against a count written out by hand:
+    nx 11, ny 16, nz 43, ntheta 34, 27 equality rows."""
+    dims, _ = knots
+    n, k = 1008, 9
+    flops, nbytes = work(dims, n, k, iters=8, refine=1, max_ls=3)
+    schur = 2 * (16 * 11 + 16 * 16 + 11 * 16 + 11 * 11) + 6 * 16   # 1554
+    jac = 2 * 27 * 43 + 3 * 16 + 43                                # 2413
+    solve = schur + jac + schur + 43                               # 5564
+    residual = 2 * 27 * 43 + 43 + 27 + 2 * 16                      # 2424
+    # the line search: two 27 × 43 products for both directions' Rza d, 8
+    # candidates of 27 affine rows and 16 bilinear ones, the merit at α = 0
+    search = 2 * 2 * 27 * 43 + 8 * (4 * 27 + 8 * 16) + 2 * 43      # 6618
+    factor = 2 * 16 * 16 * 16 + 3 * 16 + 16 * 16                   # 8496
+    iteration = residual + factor + 3 * solve + search + 368       # 34598
+    final = residual + factor + 34 * solve                         # 200096
+    base = 2 * 27 * 34 + 34 + 2 * 27                               # 1924
+    knot = 2 * 11 * 11 * 11 + 2 * 16 * 11 * 11 + 2 * 16 * 16 * 11  # 12166
+    assert (schur, jac, solve, residual) == (1554, 2413, 5564, 2424)
+    assert (search, iteration, final) == (6618, 34598, 200096)
+    assert flops == n * (base + 8 * iteration + final) + k * knot
+    assert abs(flops / n - 479e3) < 1e3, flops / n
+    per_problem = 4 * (34 + 11 + 4) + 4 * (43 + 43 * 34 + 2) + 1   # 6225
+    per_knot = 4 * (43 + 34 + 43 + 43 * 43 + 43 * 34)              # 13724
+    assert nbytes == n * per_problem + k * per_knot
+    # The reckoning the kernel's redesign started from, ~658 kflop and
+    # ~6.2 KB a problem, charged more than the function needs: a product
+    # of its own for each of the 8 candidates (residual + 4 × 43 each, in
+    # place of `search`) and a 16 × 32 tableau for each of the 9 inverses.
+    # With both put back the count is within 5% of it.
+    direct = flops / n + 8 * (8 * (residual + 4 * 43) - search) \
+        + 9 * 2 * 16 * 16 * 16
+    assert abs(direct - 658e3) < 0.05 * 658e3, direct
+    assert abs(nbytes / n - 6.2e3) < 0.05 * 6.2e3, nbytes / n
+    # operations bound it: 67 TFLOP/s against 3.35 TB/s
+    assert flops / 67e12 > nbytes / 3.35e12
+
+
+@pytest.mark.parametrize("iters,refine,max_ls", [(0, 0, 0), (8, 0, 3),
+                                                 (10, 2, 6)])
+def test_work_count_scales(knots, iters, refine, max_ls):
+    """Linear in the problems at a fixed knot count; more iterations,
+    refinement passes or halvings never cost less."""
+    dims, _ = knots
+    f1, b1 = work(dims, 9, 9, iters, refine, max_ls)
+    f2, b2 = work(dims, 18, 9, iters, refine, max_ls)
+    f0, b0 = work(dims, 0, 9, iters, refine, max_ls)
+    assert f2 - f1 == f1 - f0 > 0 and b2 - b1 == b1 - b0 > 0
+    assert work(dims, 9, 9, iters + 1, refine, max_ls)[0] > f1
+    assert work(dims, 9, 9, iters + 1, refine + 1, max_ls)[0] > f1
+    assert work(dims, 9, 9, iters + 1, refine, max_ls + 1)[0] > f1
+    assert work(dims, 9, 9, iters + 1, refine, max_ls)[1] == b1
+
+
+def test_plain_packing_holds_fixed_ip_blocks(knots):
+    """The packed per-knot constants, plain version, against the blocks
+    ``ops/fixed_ip.py`` forms: each block at its place of the layout,
+    zeros in all padding, every piece 16-byte aligned; on CPU tensors
+    ``pack_knots`` is the plain version."""
+    dims, inputs = knots
+    t = [torch.as_tensor(inputs[k][:9], dtype=torch.float32)
+         for k in ORDER[:5]]
+    z0, theta0, r0, rz0, rtheta0 = t
+    lay = pack_layout(dims)
+    pack = pack_knots_plain(dims, *t)
+    assert pack.shape == (9, lay.size) and pack.dtype == torch.float32
+    assert torch.equal(pack_knots(dims, *t), pack)
+    assert all(off % 4 == 0 and stride % 4 == 0
+               for off, _, stride, _ in lay.blocks.values())
+    nx, ne = dims.nx, dims.nx + dims.ny
+    b = knot_blocks(dims, rz0)
+    slots = list(lay.slots)
+    diag = lambda m: torch.diagonal(m, dim1=-2, dim2=-1)
+    want = {"rza": None, "dxi": b.dxi, "dy1": b.dy1, "dxdy": b.dxi @ b.dy1,
+            "cai": b.cai, "sb": b.ry1 - b.caib, "ry1d": diag(b.ry1),
+            "caibd": diag(b.caib), "ry2": b.ry2, "z0": None,
+            "r0": r0[:, :ne], "theta0": theta0,
+            "rtheta0": rtheta0.reshape(9, -1)}
+    got = pack_blocks(dims, pack)
+    assert list(got) == list(want) == list(lay.blocks)
+    used = torch.zeros(lay.size, dtype=torch.bool)
+    for name, (off, rows, stride, cols) in lay.blocks.items():
+        if want[name] is None:
+            continue
+        assert torch.equal(got[name], want[name].reshape(got[name].shape)), name
+        for row in range(rows):
+            used[off + row * stride:off + row * stride + cols] = True
+    # the padded vectors: x in the first slots, y1 and y2 aligned after it
+    assert slots[:nx] == list(range(nx)) and slots[nx] % 4 == 0
+    assert torch.equal(got["rza"][:, :, slots], rz0[:, :ne, :])
+    assert torch.equal(got["z0"][:, 0, slots], z0)
+    for name in ("rza", "z0"):
+        off, rows, stride, _ = lay.blocks[name]
+        for row in range(rows):
+            used[off + row * stride + torch.as_tensor(slots)] = True
+    assert not pack[:, ~used].any()
+    assert int((~used).sum()) > 0

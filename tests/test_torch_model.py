@@ -56,7 +56,7 @@ def gait_pair():
     ref_j = jfrom_gait(jquad, env_j, jload_gait("quadruped", "gait2"),
                        update_friction=True)
     ref_t = from_gait(quadruped, env_t, load_gait("quadruped", "gait2"),
-                      update_friction=True, dtype=F64)
+                      update_friction=True, dtype=F64, device="cpu")
     return ref_j, ref_t
 
 
@@ -84,7 +84,7 @@ def test_from_gait_matches(gait_pair):
         np.testing.assert_allclose(getattr(ref_t, name).numpy(),
                                    np.asarray(getattr(ref_j, name)),
                                    rtol=0, atol=1e-12, err_msg=name)
-    again = interop.contact_traj(ref_j)
+    again = interop.contact_traj(ref_j, device="cpu")
     np.testing.assert_array_equal(again.z.numpy(), np.asarray(ref_j.z))
 
 
@@ -177,7 +177,7 @@ def test_residual_and_jacobians_at_gait_knots(gait_pair):
     r0_j[:, -16:] -= kappa
     want = interop.linearized_data(JLin(
         z0=ref_j.z, theta0=ref_j.theta, r0=r0_j, rz0=jac_j[:, :, :nz],
-        rtheta0=jac_j[:, :, nz:]))
+        rtheta0=jac_j[:, :, nz:]), device="cpu")
     for name in want._fields:
         w = getattr(want, name).numpy()
         tol = 1e-9 * np.abs(w).max() if name in ("rz0", "rtheta0") else 1e-10
@@ -188,9 +188,9 @@ def test_residual_and_jacobians_at_gait_knots(gait_pair):
 def test_tracking_objective_matches_jax():
     """The hot path's tracking weights, carried across from JAX's."""
     want = interop.tracking_objective(jquadruped_tracking_weights(
-        jdims_of(jquad, ci.flat_2d_lc), 10, jnp.float64))
+        jdims_of(jquad, ci.flat_2d_lc), 10, jnp.float64), device="cpu")
     got = quadruped_tracking_weights(dims_of(quadruped, pt.flat_2d_lc), 10,
-                                     F64)
+                                     F64, "cpu")
     for name in want._fields:
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       getattr(want, name).numpy())

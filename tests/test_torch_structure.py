@@ -52,7 +52,7 @@ def t64(x):
 def gait():
     dims = dims_of(quadruped, pt.flat_2d_lc)
     ref = from_gait(quadruped, pt.flat_2d_lc, load_gait("quadruped", "gait2"),
-                    update_friction=True, dtype=F64)
+                    update_friction=True, dtype=F64, device="cpu")
     return dims, ref
 
 
@@ -197,7 +197,7 @@ def test_structure_newton_solve_matches_jax(gait):
     q0 = ref.q[0].numpy() + 0.01 * rng.standard_normal((2, dims.nq))
     q1 = ref.q[1].numpy() + 0.01 * rng.standard_normal((2, dims.nq))
     sobj = ss.structure_objective_from_tracking(
-        dims, pt.hotpath.quadruped_tracking_weights(dims, h, F64),
+        dims, pt.hotpath.quadruped_tracking_weights(dims, h, F64, "cpu"),
         cfg.newton_options().beta_init, h)
     got = ss.structure_newton_solve(
         dims, sobj, lin_w, q_ref, u_ref, th_t, t64(q0), t64(q1),
