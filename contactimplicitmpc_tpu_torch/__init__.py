@@ -5,8 +5,8 @@ Same module layout and public names as the JAX package; plain functions on
 tensors with an explicit leading batch axis. The entry points that make
 tensors take ``device`` and put them on the GPU when it is left out
 (``default_device``; it raises where there is no GPU, and ``device="cpu"``
-asks for the CPU); functions that receive tensors follow their inputs. The one TPU kernel of the main path, the batched knot
-interior-point solve, is a hand-written CUDA kernel for Hopper
+asks for the CPU); functions that receive tensors follow their inputs.
+The JAX package's one TPU kernel, the batched knot interior-point solve, is a hand-written CUDA kernel for Hopper
 (``csrc/knot_ip.cu``, wrapper ``ops/knot_ip.py``).
 """
 
@@ -20,6 +20,20 @@ _torch.set_float32_matmul_precision("highest")
 
 from .device import default_device  # noqa: E402
 from .dims import Dims  # noqa: E402
-from .env import Environment, environment_2d_flat, flat_2d_lc  # noqa: E402
+from .env import (Environment, environment_2d_flat, flat_2d_lc,  # noqa: E402
+                  slope1_2d_lc)
+from .models.base import Model, dims_of, dynamics  # noqa: E402
+from .sim.interior_point import (IPOptions, IPResult, ip_solve,  # noqa: E402
+                                 z_initialize, z_warmstart)
+from .sim.residual import (pack_theta, pack_z, residual,  # noqa: E402
+                           residual_theta_jacobian, residual_z_jacobian,
+                           unpack_theta, unpack_z)
+from .sim.simulator import (PolicyObs, SimTrajectory,  # noqa: E402
+                            control_saturation, default_sim_options,
+                            empty_disturbances, empty_policy,
+                            impulse_disturbances, open_loop_disturbances,
+                            open_loop_policy, random_disturbances,
+                            saturated_policy, simulate, status)
+from .control.policy import CIMPCOptions, ci_mpc_policy  # noqa: E402
 
 __version__ = "0.1.0"

@@ -1,15 +1,16 @@
 """Closed-loop MPC rollout over a batch of lanes.
 
-PyTorch counterpart of ``contactimplicitmpc_tpu/control/rollout.py``,
-structure-mode branch::
+PyTorch counterpart of ``contactimplicitmpc_tpu/control/rollout.py``::
 
     loop over control periods:
-        one structure-mode CIMPC Newton solve for every lane
+        one CIMPC Newton solve for every lane (direct or structure mode)
         loop over N_sample physics steps (interior-point sim)
 
 Every lane runs the same period and step counts, so the loops are Python
-loops over time with all lanes in each tensor; no value is read back to
-the host until the rollout returns.
+loops over time with all lanes in each tensor. With fixed-iteration
+solves (``sim_opts.fixed_iters``, ``n_opts.fixed_newton_iters`` or
+structure mode) no value is read back to the host until the rollout
+returns; the adaptive loops read one flag a trip.
 """
 
 from __future__ import annotations
@@ -22,13 +23,17 @@ import torch
 from ..models.base import Model, dims_of
 from ..sim.interior_point import IPOptions, ip_solve, z_initialize
 from ..sim.residual import pack_theta, residual
-from .implicit_dynamics import CONFIGURATION
+from ..utils.spans import span
+from .implicit_dynamics import (CONFIGURATION, default_mpc_ip_options,
+                                nd_of)
 from .linearized import gather, linearize_trajectory
-from .newton import NewtonOptions
+from .newton import NewtonAssembler, NewtonOptions, newton_solve
+from .policy import CIMPCOptions
 from .structure_solver import (shift_state, state_from_reference,
                                structure_newton_solve,
                                structure_objective_from_tracking)
-from .trajectory import ContactTraj, get_stride, update_theta, update_z
+from .trajectory import (ContactTraj, expand_traj, get_stride, slice_horizon,
+                         update_theta, update_z)
 
 
 class MPCRollout(NamedTuple):
@@ -52,22 +57,34 @@ def mpc_rollout(model: Model, env, ref_traj: ContactTraj, obj,
                 ip_opts: Optional[IPOptions] = None,
                 sim_opts: Optional[IPOptions] = None,
                 warm_start_floor: float = 0.0,
-                newton_mode: str = "structure",
+                newton_mode: str = "direct",
+                mpc_opts=None, stride_idx=(0,),
                 structure_full_warm: bool = True,
-                newton_reset_scale: float = 0.0,
-                altitude_update: bool = False,
-                altitude_impact_threshold: float = 1.0) -> MPCRollout:
+                w=None, sim_model: Optional[Model] = None, sim_env=None,
+                newton_reset_scale: float = 0.0) -> MPCRollout:
     """Closed-loop CIMPC rollout of the lanes ``q1``, ``v1`` (B, nq); the
     reference, objective and options are shared. ``horizon_sim`` must be
-    a multiple of ``n_sample``. Only ``newton_mode="structure"`` in
-    configuration mode is ported."""
-    if newton_mode != "structure" or mode != CONFIGURATION:
-        raise NotImplementedError("only structure-mode Newton in "
-                                  "configuration mode is ported")
+    a multiple of ``n_sample``.
+
+    ``newton_mode="direct"`` assembles the dense horizon KKT
+    (``newton.py``); ``"structure"`` replaces it with the O(H)
+    block-tridiagonal sweep (configuration mode; ``structure_solver.py``).
+    ``w`` holds external disturbance forces per sim step, (T, nw) shared
+    by the lanes or (B, T, nw). ``sim_model``/``sim_env`` let the physics
+    run another model or terrain than the controller's."""
+    structure = newton_mode == "structure"
+    if not structure and newton_mode != "direct":
+        raise ValueError(f"invalid newton_mode {newton_mode!r}")
+    if structure and mode != CONFIGURATION:
+        raise ValueError("structure-mode Newton runs in configuration mode")
     if horizon_sim % n_sample:
         raise ValueError("horizon_sim must be a multiple of n_sample")
-    if n_opts is None or ip_opts is None or sim_opts is None:
-        raise ValueError("pass n_opts, ip_opts and sim_opts (see hotpath.py)")
+    n_opts = n_opts or NewtonOptions(r_tol=3.0e-4, max_iter=5)
+    ip_opts = ip_opts or default_mpc_ip_options(kappa_mpc)
+    sim_opts = sim_opts or IPOptions(r_tol=1e-8, kappa_tol=1e-8,
+                                     max_iter=100, undercut=float("inf"),
+                                     max_ls=6)
+    mpc_opts = mpc_opts or CIMPCOptions()
     n_ctrl = horizon_sim // n_sample
     dims = dims_of(model, env)
     dtype, device = ref_traj.q.dtype, ref_traj.q.device
@@ -77,9 +94,13 @@ def mpc_rollout(model: Model, env, ref_traj: ContactTraj, obj,
     batch = q1.shape[0]
 
     lin = linearize_trajectory(model, env, ref_traj, kappa_mpc)
-    stride = get_stride(model, ref_traj)
-    sobj = structure_objective_from_tracking(dims, obj, n_opts.beta_init,
-                                             h_mpc)
+    stride = get_stride(model, ref_traj, stride_idx)
+    if structure:
+        sobj = structure_objective_from_tracking(dims, obj, n_opts.beta_init,
+                                                 h_mpc)
+    else:
+        nd = nd_of(dims, mode)
+        assembler = NewtonAssembler(dims, h_mpc, mode)
 
     def ref_window_at(t: int) -> ContactTraj:
         """Rows [t, t+h_mpc) of the receding-horizon reference — the closed
@@ -101,26 +122,37 @@ def mpc_rollout(model: Model, env, ref_traj: ContactTraj, obj,
         # refresh the q-dependent slots of z and θ for the wrapped rows
         return update_theta(dims, update_z(dims, win))
 
+    sim_model = sim_model or model
+    sim_env = sim_env or env
+
     def r_fn(z, th, kap):
-        return residual(model, env, z, th, kap)
+        return residual(sim_model, sim_env, z, th, kap)
 
     mu = model.mu_world
-    w_zero = torch.zeros((batch, dims.nw), dtype=dtype, device=device)
+    # external disturbance forces per sim step, applied as given (zero if
+    # absent): the OpenLoopDisturbance analog (disturbances.jl:40-60)
+    if w is None:
+        w_steps = torch.zeros((batch, horizon_sim, dims.nw), dtype=dtype,
+                              device=device)
+    else:
+        w_steps = torch.as_tensor(w, dtype=dtype, device=device).expand(
+            batch, horizon_sim, dims.nw)
 
-    def sim_substeps(qa, qb, u, z_prev):
+    def sim_substeps(qa, qb, u, z_prev, w_period):
         """N_sample physics steps under the held control u / N_sample,
         warm-started from the previous step's cone variables floored away
         from the boundary (z_warmstart!-style, simulation.jl:87-101)."""
         u_step = u / n_sample
         outs = []
-        for _ in range(n_sample):
-            theta = pack_theta(qa, qb, u_step, w_zero, mu, h_sim)
+        for i in range(n_sample):
+            theta = pack_theta(qa, qb, u_step, w_period[:, i], mu, h_sim)
             if warm_start_floor > 0:
                 z0 = torch.cat([qb, torch.clamp(z_prev[:, nq:],
                                                 min=warm_start_floor)], -1)
             else:
                 z0 = z_initialize(dims, qb)
-            res = ip_solve(dims, r_fn, z0, theta, sim_opts)
+            with span("sim_ip", theta):
+                res = ip_solve(dims, r_fn, z0, theta, sim_opts)
             q2 = res.z[:, :nq]
             # a DIVERGED solve must not seed the next step, but a merely
             # near-converged one (rvio within 100× tolerance) is a far
@@ -141,23 +173,27 @@ def mpc_rollout(model: Model, env, ref_traj: ContactTraj, obj,
         phi = torch.func.vmap(torch.func.vmap(
             lambda q: model.phi(env, q)))(q_at)                   # (B, nc, nc)
         phi_i = torch.diagonal(phi, dim1=-2, dim2=-1)
-        alt_new = torch.where(gamma_max > altitude_impact_threshold,
-                              phi_i, alt)
+        alt_new = torch.where(
+            gamma_max > mpc_opts.altitude_impact_threshold, phi_i, alt)
         return torch.where(warm[:, None], alt_new, alt)
 
     # controller-level cold restart: a control solve that ends with its
     # residual far above tolerance resets the next period's warm start to
     # the reference (newton_reset_scale = 0 keeps the reference semantics)
-    n_norm = (h_mpc - 1) * (dims.nu + 4 * nq)
+    n_norm = ((h_mpc - 1) * (dims.nu + 4 * nq) if structure
+              else h_mpc * (assembler.ind.nr + nd))
     fail_tol = newton_reset_scale * n_opts.r_tol * n_norm
 
     q1 = q1.to(dtype)
     q0 = q1 - h_sim * v1.to(dtype)
-    ref_w_q = ref_traj.q[:h_mpc + 1]
-    warm_state = state_from_reference(ref_w_q, ref_traj.u[:h_mpc - 1], dims,
-                                      h_mpc)
-    warm_state = type(warm_state)(*(x.expand((batch,) + x.shape).clone()
-                                    for x in warm_state))
+    if structure:
+        warm_state = state_from_reference(ref_traj.q[:h_mpc + 1],
+                                          ref_traj.u[:h_mpc - 1], dims, h_mpc)
+        warm_state = type(warm_state)(*(x.expand((batch,) + x.shape).clone()
+                                        for x in warm_state))
+    else:
+        warm_state = expand_traj(slice_horizon(ref_traj, h_mpc), (batch,))
+        nu = torch.zeros((batch, h_mpc, nd), dtype=dtype, device=device)
     # the MPC's previous-control-period configuration starts at the gait's
     # q[0] (policy.jl:101-102)
     q_ctrl_prev = ref_traj.q[0].expand(batch, nq)
@@ -172,36 +208,57 @@ def mpc_rollout(model: Model, env, ref_traj: ContactTraj, obj,
     steps, us, r_norms, n_iters = [], [], [], []
     for t in range(n_ctrl):
         warm = prev_ok & (t > 0)
-        if altitude_update:
+        if mpc_opts.altitude_update:
             alt = update_altitude(alt, gamma_prev, q_prev, warm)
         ref_window = ref_window_at(t)
         window = (t + np.arange(h_mpc)) % h_ref
-        lin_w = gather(lin, window[:h_mpc - 1])
-        q_ref = ref_window.q[:h_mpc + 1]
-        u_ref = ref_window.u[:h_mpc - 1]
-        st_ref = state_from_reference(q_ref, u_ref, dims, h_mpc)
         wm = lambda x: warm.view((-1,) + (1,) * (x.dim() - 1))
-        if structure_full_warm:
-            shifted = shift_state(warm_state, q_ref, u_ref, h_mpc)
-            st0 = type(st_ref)(*(torch.where(wm(a), a, b)
-                                 for a, b in zip(shifted, st_ref)))
+        if structure:
+            lin_w = gather(lin, window[:h_mpc - 1])
+            q_ref = ref_window.q[:h_mpc + 1]
+            u_ref = ref_window.u[:h_mpc - 1]
+            st_ref = state_from_reference(q_ref, u_ref, dims, h_mpc)
+            if structure_full_warm:
+                shifted = shift_state(warm_state, q_ref, u_ref, h_mpc)
+                st0 = type(st_ref)(*(torch.where(wm(a), a, b)
+                                     for a, b in zip(shifted, st_ref)))
+            else:
+                # duals-only warm start: primal stages from the reference
+                st0 = type(st_ref)(
+                    *(x.expand((batch,) + x.shape) for x in st_ref[:3]),
+                    torch.where(wm(warm_state.nu1), warm_state.nu1,
+                                st_ref.nu1),
+                    torch.where(wm(warm_state.nu2), warm_state.nu2,
+                                st_ref.nu2))
+            with span("newton", qb_sim):
+                result = structure_newton_solve(
+                    dims, sobj, lin_w, q_ref, u_ref,
+                    ref_window.theta[:h_mpc - 1], q_ctrl_prev, qb_sim, st0,
+                    alt, ip_opts, n_opts, h_mpc)
+            u = result.state.u[:, 1]
+            warm_state = result.state
         else:
-            # duals-only warm start: primal stages from the reference
-            st0 = type(st_ref)(
-                *(x.expand((batch,) + x.shape) for x in st_ref[:3]),
-                torch.where(wm(warm_state.nu1), warm_state.nu1, st_ref.nu1),
-                torch.where(wm(warm_state.nu2), warm_state.nu2, st_ref.nu2))
-        result = structure_newton_solve(
-            dims, sobj, lin_w, q_ref, u_ref, ref_window.theta[:h_mpc - 1],
-            q_ctrl_prev, qb_sim, st0, alt, ip_opts, n_opts, h_mpc)
-        u = result.state.u[:, 1]
+            lin_w = gather(lin, window)
+            traj0 = ContactTraj(ref_window.h, ref_window.kappa, *(
+                torch.where(wm(a), a, b)
+                for a, b in zip(warm_state[2:], ref_window[2:])))
+            nu0 = torch.where(wm(nu), nu, torch.zeros_like(nu))
+            # newton sees configurations one control period (= gait step
+            # h) apart: (q at previous update, current q) — policy.jl:117-132
+            with span("newton", qb_sim):
+                result = newton_solve(dims, mode, assembler, obj, lin_w,
+                                      ref_window, traj0, nu0, q_ctrl_prev,
+                                      qb_sim, alt, ip_opts, n_opts)
+            u = result.traj.u[:, 0]
+            warm_state, nu = result.traj, result.nu
 
         q_ctrl_prev = qb_sim
-        qa_sim, qb_sim, z_prev, ys = sim_substeps(qa_sim, qb_sim, u, z_prev)
+        qa_sim, qb_sim, z_prev, ys = sim_substeps(
+            qa_sim, qb_sim, u, z_prev,
+            w_steps[:, t * n_sample:(t + 1) * n_sample])
         q_prev, gamma_prev = ys[0], ys[1]
         if newton_reset_scale > 0:
             prev_ok = result.r_norm < fail_tol
-        warm_state = result.state
         steps.append(ys)
         us.append((u / n_sample)[:, None, :].expand(batch, n_sample, dims.nu))
         r_norms.append(result.r_norm)

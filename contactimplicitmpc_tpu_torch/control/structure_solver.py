@@ -316,8 +316,8 @@ def _implicit_stages(dims: Dims, lin: LinearizedData, state: StructureState,
     is the solved configuration z*_{q2} and aa/ab/ba are ∂z*q2/∂(q0, q1, u).
     """
     if fixed_iters <= 0:
-        raise NotImplementedError("only the fixed-iteration knot solve is "
-                                  "ported (NewtonOptions.fixed_ip_iters > 0)")
+        raise ValueError("the structure-mode solver takes fixed-iteration "
+                         "knot solves (NewtonOptions.fixed_ip_iters > 0)")
     h = horizon
     nq = dims.nq
     lead = state.qa.shape[:-2]
@@ -396,7 +396,10 @@ def structure_newton_solve(dims: Dims, sobj: StructureObjective,
 
     The reference's adaptive loop becomes ``max_iter`` masked trips: a
     lane whose loop condition is false passes through unchanged and
-    counts no iteration, as under a vmapped ``while_loop``.
+    counts no iteration, as under a vmapped ``while_loop``; with
+    ``opts.fixed_newton_iters > 0`` it is that many masked trips, a lane
+    passing through once it has converged. Nothing is read back to the
+    host either way.
     """
     h = horizon
     dtype = q_ref.dtype
@@ -412,10 +415,14 @@ def structure_newton_solve(dims: Dims, sobj: StructureObjective,
         qa=torch.cat([state.qa[:, :1], q0[:, None], state.qa[:, 2:]], dim=1),
         qb=torch.cat([state.qb[:, :1], q1[:, None], state.qb[:, 2:]], dim=1))
 
-    def residual_of(st, alt_):
+    # line-search trials may run a reduced knot-solve budget: the trial
+    # residual only steers the accept decision, and the chosen candidate
+    # is solved again at the full budget before it becomes the iterate
+    cheap_trials = 0 < opts.trial_ip_iters < opts.fixed_ip_iters
+
+    def residual_of(st, alt_, fixed_iters=opts.fixed_ip_iters):
         d, aa, ab, ba, _ = _implicit_stages(
-            dims, lin, st, theta_template, alt_, ip_opts, h,
-            opts.fixed_ip_iters)
+            dims, lin, st, theta_template, alt_, ip_opts, h, fixed_iters)
         parts = structure_residuals(dims, sobj, st, q_ref, u_ref,
                                     d, aa, ab, ba, h)
         return parts, (aa, ab, ba)
@@ -444,12 +451,26 @@ def structure_newton_solve(dims: Dims, sobj: StructureObjective,
         return tuple(torch.where(mask.view((-1,) + (1,) * (n.dim() - 1)), n, o)
                      for n, o in zip(new, old))
 
+    def within(rn, r_norm_c):
+        """Reject non-finite steps always, and residual growth beyond
+        ls_growth_allow when that bound is finite (stale values + retry
+        next control period, implicit_dynamics.jl:169-177)."""
+        ok = torch.isfinite(rn)
+        if np.isfinite(opts.ls_growth_allow):
+            ok = ok & (rn <= opts.ls_growth_allow * r_norm_c)
+        return ok
+
     it = torch.zeros((batch,), dtype=torch.int32, device=q0.device)
-    for _ in range(opts.max_iter):
-        live = (it < opts.max_iter) & (r_norm / n_total >= opts.r_tol)
+    fixed = opts.fixed_newton_iters > 0
+    for _ in range(opts.fixed_newton_iters if fixed else opts.max_iter):
+        if fixed:
+            live = ~(r_norm / n_total < opts.r_tol)
+        else:
+            live = (it < opts.max_iter) & (r_norm / n_total >= opts.r_tol)
         step = structure_kkt_solve(dims, sobj, *jacs, *parts, beta, h)
         sts = apply_step(state, step)
-        ps, js = residual_of(sts, alt_t)
+        ps, js = residual_of(sts, alt_t, opts.trial_ip_iters if cheap_trials
+                             else opts.fixed_ip_iters)
         rns = _residual_norm(ps)                                 # (B, n_ls)
         accept = rns ** 2 < (1.0 - 1.0e-3 * alphas) * r_norm[:, None] ** 2
         # no-accept fallback: the reference's smallest-α forced step when
@@ -463,16 +484,18 @@ def structure_newton_solve(dims: Dims, sobj: StructureObjective,
                            accept.to(torch.int8).argmax(dim=1), fallback)
         take = lambda x: x[lane, pick]
         rn_pick = take(rns)
-        # reject non-finite steps always, and residual growth beyond
-        # ls_growth_allow when that bound is finite (stale values + retry
-        # next control period, implicit_dynamics.jl:169-177)
-        ok = torch.isfinite(rn_pick)
-        if np.isfinite(opts.ls_growth_allow):
-            ok = ok & (rn_pick <= opts.ls_growth_allow * r_norm)
+        ok = within(rn_pick, r_norm)
+        st_pick = StructureState(*(take(x) for x in sts))
+        if cheap_trials:
+            ps_pick, js_pick = residual_of(st_pick, alt)
+            rn_pick = _residual_norm(ps_pick)
+            ok = ok & within(rn_pick, r_norm)
+        else:
+            ps_pick, js_pick = [take(x) for x in ps], [take(x) for x in js]
         upd = ok & live
-        state = StructureState(*select(upd, [take(x) for x in sts], state))
-        parts = select(upd, [take(x) for x in ps], parts)
-        jacs = select(upd, [take(x) for x in js], jacs)
+        state = StructureState(*select(upd, st_pick, state))
+        parts = select(upd, ps_pick, parts)
+        jacs = select(upd, js_pick, jacs)
         r_norm = torch.where(upd, rn_pick, r_norm)
         it = torch.where(live, it + 1, it)
     return StructureNewtonResult(state=state, r_norm=r_norm, iterations=it)

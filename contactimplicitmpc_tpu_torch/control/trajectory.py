@@ -36,6 +36,40 @@ class ContactTraj(NamedTuple):
         return self.u.shape[-2]
 
 
+def contact_trajectory(dims: Dims, horizon: int, h, kappa=0.0,
+                       dtype=torch.float64, device=None) -> ContactTraj:
+    """trajectory.jl:21-49 — zero-filled trajectory with the time step in
+    θ, on ``device``, by default the GPU (``device.default_device``)."""
+    device = resolve_device(device)
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    scalar = lambda x: torch.tensor(float(x), dtype=dtype, device=device)
+    theta = zeros(horizon, dims.ntheta)
+    theta[:, dims.ih] = float(h)
+    return ContactTraj(h=scalar(h), kappa=scalar(kappa),
+                       q=zeros(horizon + 2, dims.nq), u=zeros(horizon, dims.nu),
+                       w=zeros(horizon, dims.nw), gamma=zeros(horizon, dims.nc),
+                       b=zeros(horizon, dims.nb), z=zeros(horizon, dims.nz),
+                       theta=theta)
+
+
+def slice_horizon(traj: ContactTraj, horizon: int) -> ContactTraj:
+    """The first ``horizon`` knots (copy_traj!, newton.jl:105-128)."""
+    return ContactTraj(h=traj.h, kappa=traj.kappa,
+                       q=traj.q[..., :horizon + 2, :],
+                       u=traj.u[..., :horizon, :], w=traj.w[..., :horizon, :],
+                       gamma=traj.gamma[..., :horizon, :],
+                       b=traj.b[..., :horizon, :], z=traj.z[..., :horizon, :],
+                       theta=traj.theta[..., :horizon, :])
+
+
+def expand_traj(traj: ContactTraj, lead) -> ContactTraj:
+    """``traj`` with its per-knot leaves broadcast to the leading shape
+    ``lead`` (no copy); ``h`` and ``kappa`` stay scalars."""
+    lead = tuple(lead)
+    return ContactTraj(traj.h, traj.kappa, *(
+        x.expand(lead + x.shape[-2:]) for x in traj[2:]))
+
+
 def update_z(dims: Dims, traj: ContactTraj) -> ContactTraj:
     """trajectory.jl:51-65 — refresh the (q2, γ1, b1) slots of z."""
     z = torch.cat([traj.q[..., 2:, :], traj.gamma, traj.b,
@@ -96,11 +130,26 @@ def repeat_traj(traj: ContactTraj, n: int, idx_shift=()) -> ContactTraj:
                        b=tile(traj.b), z=tile(traj.z), theta=tile(traj.theta))
 
 
-def get_stride(model: Model, traj: ContactTraj) -> torch.Tensor:
-    """mpc_utils.jl:103-107 — per-period x-offset of the gait."""
+def get_stride(model: Model, traj: ContactTraj,
+               stride_idx=(0,)) -> torch.Tensor:
+    """mpc_utils.jl:103-107 — per-period offset of the gait in the
+    coordinates ``stride_idx`` (x alone by default)."""
+    idx = list(stride_idx)
     stride = torch.zeros_like(traj.q[0])
-    stride[0] = traj.q[-2, 0] - traj.q[0, 0]
+    stride[idx] = traj.q[-2, idx] - traj.q[0, idx]
     return stride
+
+
+def rot_n_stride(dims: Dims, traj: ContactTraj, stride) -> ContactTraj:
+    """Receding-horizon shift: rotate one knot and re-tile the wrap-around
+    with the stride offset (rotate! + mpc_stride!, mpc_utils.jl:1-101)."""
+    roll1 = lambda x: torch.roll(x, -1, dims=-2)
+    q = roll1(traj.q)
+    # mpc_stride!: last two configurations = first two + stride
+    q = torch.cat([q[..., :-2, :], q[..., :2, :] + stride], dim=-2)
+    out = ContactTraj(traj.h, traj.kappa, q, *map(roll1, traj[3:]))
+    # refresh the q-dependent slots of z and θ
+    return update_theta(dims, update_z(dims, out))
 
 
 def initial_conditions(traj: ContactTraj):
@@ -137,3 +186,10 @@ def tracking_errors(ref: ContactTraj, sim_q, sim_u, sim_gamma, sim_b,
     g_err = l1(dup.gamma[tv], sim_gamma[..., tv * n_sample, :]) / nc
     b_err = l1(dup.b[tv], sim_b[..., tv * n_sample, :]) / nb
     return q_err / cnt, u_err / cnt, g_err / cnt, b_err / cnt
+
+
+def tracking_error(ref: ContactTraj, sim_q, sim_u, sim_gamma, sim_b,
+                   n_sample: int, idx_shift=()):
+    """``tracking_errors`` of one rollout as Python floats."""
+    return tuple(float(e) for e in tracking_errors(
+        ref, sim_q, sim_u, sim_gamma, sim_b, n_sample, idx_shift))

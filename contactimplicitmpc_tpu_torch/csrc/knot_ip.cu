@@ -57,8 +57,12 @@
 //   candidate c of the line search alone; ballots select.
 // - Sensitivities: lane c solves column c (refinement included) out of
 //   registers, the matrices read as broadcasts from shared memory, and
-//   stores dz[i][c] beside its neighbours'. The columns past 32 go through
-//   the side-by-side solve.
+//   stores dz[i][c] beside its neighbours'. The columns past 32, where a
+//   model has them, go through the side-by-side solve.
+// - One instantiation a model, listed in KNOT_IP_MODELS below. The template
+//   takes any dimensions that meet struct Lay's assertions (NY a multiple of
+//   4 and at most 16, NX <= NY, at most 32 equality rows, at most 34
+//   columns of theta); lanes past NY, 2 NY, NE, NV or NT idle.
 // These reorderings stay inside the float32 spread of two correct solves:
 // after 1 and 3 iterations every problem agrees with the plain version to
 // ~1e-5 in z (chip_smoke.py and tests/test_torch_cuda.py hold 1e-4).
@@ -182,8 +186,11 @@ template <int NX, int NY, int NT, int NC>
 struct Lay {
   static constexpr int NE = NX + NY;      // equality rows
   static constexpr int NZ = NX + 2 * NY;  // variables
-  static_assert(NY % 4 == 0 && 2 * NY == 32, "two right-hand sides a warp");
-  static_assert(NE <= 32 && NT > 32 && NT <= 34, "rows and columns per lane");
+  static_assert(NY % 4 == 0 && 2 * NY <= 32, "two right-hand sides a warp");
+  static_assert(NX <= NY, "a half-warp's NY lanes hold the x rows of a solve");
+  static_assert(NE <= 32 && NT <= 34, "rows and columns per lane");
+  // sensitivity columns past the warp's lanes, solved side by side
+  static constexpr int NL = NT > 32 ? NT - 32 : 0;
   static constexpr int VY1 = pad4(NX), VY2 = VY1 + NY, NV = VY2 + NY;
   static constexpr int XS = pad4(NX);  // row stride of NX-wide matrices
   static constexpr int YS = NY + 4;    // of NY-wide ones read a row a lane
@@ -342,7 +349,7 @@ struct Solver {
       for (int i = 0; i < NY; ++i) t[i] = i == lane - NY ? 1.0f : 0.0f;
     }
     gj_columns<NY>(t);
-    if (lane >= NY) {
+    if (lane >= NY && lane < 2 * NY) {
 #pragma unroll
       for (int i = 0; i < NY; ++i) w[L::wSi + i * L::YS + lane - NY] = t[i];
     }
@@ -498,7 +505,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) knot_ip_kernel(Params p) {
   for (int e = lane; e < L::kWarp; e += 32) w[e] = 0.0f;
   float th_lo = 0.0f, th_hi = 0.0f, q2 = 0.0f, alt = 0.0f;
   if (live) {
-    th_lo = p.theta[(size_t)n * NT + lane];
+    if (lane < NT) th_lo = p.theta[(size_t)n * NT + lane];
     if (lane + 32 < NT) th_hi = p.theta[(size_t)n * NT + lane + 32];
     if (lane < NX) q2 = p.q2_init[(size_t)n * NX + lane];
     if (lane >= NX && lane < NX + NC) alt = p.alt[(size_t)n * NC + lane - NX];
@@ -520,7 +527,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) knot_ip_kernel(Params p) {
   const int eslot = L::slot(lane);
 
   // ---- base residual and the initial point ----------------------------
-  th[lane] = th_lo - pk[L::kTh0 + lane];
+  if (lane < NT) th[lane] = th_lo - pk[L::kTh0 + lane];
   if (lane + 32 < NT) th[lane + 32] = th_hi - pk[L::kTh0 + lane + 32];
   for (int s = lane; s < NV; s += 32) {
     if (L::is_pad(s)) continue;
@@ -539,11 +546,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) knot_ip_kernel(Params p) {
   }
 
   const int n_ls = p.max_ls + 1;
-  const int h = lane / NY, i = lane % NY;
-  // this lane's slots of a padded vector: lane and, where it exists, s1
+  // the half of the warp (of each 2 NY lanes, where NY < 16) and its row
+  const int h = (lane / NY) % 2, i = lane % NY;
+  // this lane's slots of a padded vector: lane and s1, where they exist
   static_assert(L::VY1 <= 32 && NV <= 64, "two slots a lane");
   const int s1 = lane + 32;
-  const bool pad0 = L::is_pad(lane), has1 = s1 < NV;
+  const bool has0 = lane < NV && !L::is_pad(lane), has1 = s1 < NV;
   bool done = false;
   float req = 0.0f, rbl = 0.0f, rvio = 0.0f, kvio = 0.0f;
 
@@ -656,13 +664,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) knot_ip_kernel(Params p) {
     }
     const float a_pick = __shfl_sync(kFull, a, pick);
     const float* d = d2 + (pick / n_ls) * NV;
-    const float zn0 = pad0 ? 0.0f : z[lane] - a_pick * d[lane];
+    const float zn0 = has0 ? z[lane] - a_pick * d[lane] : 0.0f;
     const float zn1 = has1 ? z[s1] - a_pick * d[s1] : 0.0f;
     const bool finite = __all_sync(kFull, isfinite(zn0) && isfinite(zn1));
     __syncwarp();  // every lane has read z
     // keep the last finite iterate; converged problems freeze
     if (!(done || done_now || !finite)) {
-      if (!pad0) {
+      if (has0) {
         z[lane] = zn0;
         zz[lane] = zn0 - pk[L::kZ0 + lane];
       }
@@ -679,9 +687,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) knot_ip_kernel(Params p) {
   residual();
   const bool converged = (rvio <= p.r_tol) && (kvio <= p.kappa_tol);
   sv.factor(kvio);
-  constexpr int NL = NT - 32;  // columns past the warp's lanes
+  constexpr int NL = L::NL;  // columns past the warp's lanes
   bool finite = true;
-  if (NL > 0) {
+  if constexpr (NL > 0) {
     for (int s = lane; s < NV; s += 32) {
       if (L::is_pad(s)) continue;
 #pragma unroll
@@ -696,8 +704,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) knot_ip_kernel(Params p) {
       for (int c = 0; c < NL; ++c) finite = finite && isfinite(d2[c * NV + s]);
     }
   }
+  // a lane past the last column solves that column again and stores nothing
+  const bool col = lane < NT;
   float ox[NX], oy[NY], ow[NY];
-  sv.solve_column(lane, p.refine, ox, oy, ow);
+  sv.solve_column(col ? lane : NT - 1, p.refine, ox, oy, ow);
 #pragma unroll
   for (int e = 0; e < NX; ++e) finite = finite && isfinite(ox[e]);
 #pragma unroll
@@ -705,18 +715,22 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) knot_ip_kernel(Params p) {
     finite = finite && isfinite(oy[e]) && isfinite(ow[e]);
   const bool dz_bad = !__all_sync(kFull, finite);
   float* dz = p.dz_out + (size_t)n * NZ * NT;
+  if (col) {
 #pragma unroll
-  for (int e = 0; e < NX; ++e) dz[e * NT + lane] = dz_bad ? 0.0f : ox[e];
+    for (int e = 0; e < NX; ++e) dz[e * NT + lane] = dz_bad ? 0.0f : ox[e];
 #pragma unroll
-  for (int e = 0; e < NY; ++e) {
-    dz[(NX + e) * NT + lane] = dz_bad ? 0.0f : oy[e];
-    dz[(NE + e) * NT + lane] = dz_bad ? 0.0f : ow[e];
+    for (int e = 0; e < NY; ++e) {
+      dz[(NX + e) * NT + lane] = dz_bad ? 0.0f : oy[e];
+      dz[(NE + e) * NT + lane] = dz_bad ? 0.0f : ow[e];
+    }
   }
   for (int s = lane; s < NV; s += 32) {
     if (L::is_pad(s)) continue;
+    if constexpr (NL > 0) {
 #pragma unroll
-    for (int c = 0; c < NL; ++c)
-      dz[L::unslot(s) * NT + 32 + c] = dz_bad ? 0.0f : d2[c * NV + s];
+      for (int c = 0; c < NL; ++c)
+        dz[L::unslot(s) * NT + 32 + c] = dz_bad ? 0.0f : d2[c * NV + s];
+    }
     p.z_out[(size_t)n * NZ + L::unslot(s)] = z[s];
   }
   if (lane == 0) {
@@ -754,9 +768,11 @@ int launch(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-bool quadruped(int nx, int ny, int nt, int nc) {
-  return nx == 11 && ny == 16 && nt == 34 && nc == 4;
-}
+// The models this build holds, one line each: (nx, ny, ntheta, nc) of the
+// model on its terrain (dims.py). Every entry point below dispatches over it.
+#define KNOT_IP_MODELS(X)                                     \
+  X(11, 16, 34, 4) /* quadruped on flat_2d_lc */              \
+  X(4, 4, 14, 1)   /* hopper_2d on flat_2d_lc */
 
 }  // namespace
 
@@ -766,7 +782,10 @@ bool quadruped(int nx, int ny, int nt, int nc) {
 
 // Floats of one knot's packed block.
 extern "C" int knot_ip_pack_floats(int nx, int ny, int nt, int nc) {
-  if (quadruped(nx, ny, nt, nc)) return Lay<11, 16, 34, 4>::kPack;
+#define KNOT_IP_CASE(NX, NY, NT, NC) \
+  if (nx == NX && ny == NY && nt == NT && nc == NC) return Lay<NX, NY, NT, NC>::kPack;
+  KNOT_IP_MODELS(KNOT_IP_CASE)
+#undef KNOT_IP_CASE
   return -1;
 }
 
@@ -779,8 +798,12 @@ extern "C" int knot_ip_pack_launch(
   p.z0_lin = z0_lin, p.theta0 = theta0, p.r0 = r0, p.rz0 = rz0;
   p.rtheta0 = rtheta0, p.pack = pack, p.k = k;
   if (k == 0) return 0;
-  if (quadruped(nx, ny, nt, nc))
-    return launch_pack<11, 16, 34, 4>(p, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define KNOT_IP_CASE(NX, NY, NT, NC)                  \
+  if (nx == NX && ny == NY && nt == NT && nc == NC) \
+    return launch_pack<NX, NY, NT, NC>(p, s);
+  KNOT_IP_MODELS(KNOT_IP_CASE)
+#undef KNOT_IP_CASE
   return -1;
 }
 
@@ -799,6 +822,10 @@ extern "C" int knot_ip_launch(
            r_tol, kappa_tol, kappa_floor, gamma_reg, tau_min, tau_max};
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (quadruped(nx, ny, nt, nc)) return launch<11, 16, 34, 4>(p, s);
+#define KNOT_IP_CASE(NX, NY, NT, NC)                  \
+  if (nx == NX && ny == NY && nt == NT && nc == NC) \
+    return launch<NX, NY, NT, NC>(p, s);
+  KNOT_IP_MODELS(KNOT_IP_CASE)
+#undef KNOT_IP_CASE
   return -1;
 }

@@ -2,9 +2,10 @@
 friction-cone metadata.
 
 PyTorch counterpart of ``contactimplicitmpc_tpu/env.py`` for the planar
-flat-ground terrain of the main path (``flat_2d_lc``). Surface functions
-take horizontal coordinates with any leading batch shape ``(..., ne-1)``.
-The other terrains and the 3D rotation wait for a later slice.
+flat ground (``flat_2d_lc``) and the planar 0.5-gradient slope
+(``slope1_2d_lc``). Surface functions take horizontal coordinates with any
+leading batch shape ``(..., ne-1)``. The other terrains and the 3D rotation
+wait for a later slice.
 """
 
 from __future__ import annotations
@@ -70,3 +71,7 @@ def environment_2d_flat(cone: str = LINEARIZED_CONE) -> Environment:
 
 
 flat_2d_lc = environment_2d_flat()
+
+# slope.jl: height 0.5 x
+slope1_2d_lc = Environment(2, lambda x: 0.5 * x[..., 0],
+                           lambda x: torch.full_like(x, 0.5))

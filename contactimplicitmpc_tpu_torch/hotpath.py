@@ -29,8 +29,8 @@ CONF_POSES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 class HotPathConfig:
     """Every knob of the product Monte-Carlo rollout; field names and
     defaults match the JAX package's ``HotPathConfig`` (its TPU loop
-    unroll factors and the reduced-budget line-search trials are not
-    ported)."""
+    unroll factors are not ported). ``newton_mode="direct"`` runs the dense
+    horizon KKT instead of the structure-mode sweep."""
 
     h_mpc: int = 10
     n_sample: int = 5
@@ -42,6 +42,8 @@ class HotPathConfig:
     newton_iters: int = 5
     newton_max_ls: int = 6           # line-search halvings (newton.jl:249)
     fixed_ip_iters: int = 8          # fixed-iteration knot solves
+    trial_ip_iters: int = 0          # >0: reduced budget for LS trials
+    fixed_newton_iters: int = 0      # 0 = adaptive Newton loop
     ls_growth_allow: float = 2.0     # bounded no-accept fallback (f32)
     newton_reset_scale: float = 10.0  # cold-restart trapped warm starts
 
@@ -71,6 +73,8 @@ class HotPathConfig:
                              max_iter=self.newton_iters,
                              max_ls=self.newton_max_ls,
                              fixed_ip_iters=self.fixed_ip_iters,
+                             trial_ip_iters=self.trial_ip_iters,
+                             fixed_newton_iters=self.fixed_newton_iters,
                              ls_growth_allow=self.ls_growth_allow)
 
     def mpc_ip_options(self):

@@ -1,6 +1,6 @@
 """Carry state across from the JAX package ``contactimplicitmpc_tpu``.
 
-The quadruped has no learned weights: its "parameters" are the reference
+The robots have no learned weights: their "parameters" are the reference
 gait, the linearization data, the objective weights and the options. These
 functions turn the JAX package's objects into the port's. Arrays arrive as
 anything ``numpy.asarray`` takes (the caller converts JAX arrays on its
@@ -17,9 +17,10 @@ import numpy as np
 import torch
 
 from .control.linearized import LinearizedData
-from .control.objective import TrackingObjective
-from .control.trajectory import ContactTraj
 from .control.newton import NewtonOptions
+from .control.objective import TrackingObjective, TrackingVelocityObjective
+from .control.policy import CIMPCOptions
+from .control.trajectory import ContactTraj
 from .device import resolve_device
 from .hotpath import HotPathConfig
 from .sim.interior_point import IPOptions
@@ -54,12 +55,29 @@ def tracking_objective(src, dtype=torch.float64,
     return tensors(TrackingObjective, src, dtype, device)
 
 
+def tracking_velocity_objective(src, dtype=torch.float64,
+                                device=None) -> TrackingVelocityObjective:
+    return tensors(TrackingVelocityObjective, src, dtype, device)
+
+
+def objective(src, dtype=torch.float64, device=None):
+    """The port's objective of ``src``'s kind (with or without the
+    velocity terms)."""
+    cls = (TrackingVelocityObjective if hasattr(src, "v_target")
+           else TrackingObjective)
+    return tensors(cls, src, dtype, device)
+
+
 def ip_options(src) -> IPOptions:
     return options(IPOptions, src)
 
 
 def newton_options(src) -> NewtonOptions:
     return options(NewtonOptions, src)
+
+
+def cimpc_options(src) -> CIMPCOptions:
+    return options(CIMPCOptions, src)
 
 
 def hotpath_config(src) -> HotPathConfig:

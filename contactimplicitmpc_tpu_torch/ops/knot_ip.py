@@ -40,6 +40,7 @@ import torch
 
 from ..dims import Dims
 from ..sim.interior_point import IPOptions
+from ..utils.spans import span
 from .fixed_ip import FixedIPResult, knot_blocks, linearized_ip_fixed
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -288,8 +289,9 @@ def knot_ip(dims: Dims, z0_lin, theta0, r0, rz0, rtheta0, alt, theta,
     """Batched fixed-iteration knot solve: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
     if theta.is_cuda:
-        return _launch(dims, z0_lin, theta0, r0, rz0, rtheta0, alt, theta,
-                       q2_init, opts, iters)
+        with span("knot_ip", theta):
+            return _launch(dims, z0_lin, theta0, r0, rz0, rtheta0, alt, theta,
+                           q2_init, opts, iters)
     return linearized_ip_fixed(dims, z0_lin, theta0, r0, rz0, rtheta0, alt,
                                theta, q2_init, opts, iters)
 

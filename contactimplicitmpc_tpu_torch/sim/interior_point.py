@@ -2,9 +2,8 @@
 contact NCP, batched over a leading axis of problems.
 
 PyTorch counterpart of ``contactimplicitmpc_tpu/sim/interior_point.py``
-for the linearized cone, in its masked fixed-iteration form. Scheme per
-iteration (relaxed central path over ``y1 = [γ1; b1; ψ1] ⟂ y2 = [s1; η1;
-s2]``):
+for the linearized cone. Scheme per iteration (relaxed central path over
+``y1 = [γ1; b1; ψ1] ⟂ y2 = [s1; η1; s2]``):
 
 1. affine (predictor) step: solve ``rz Δaff = r(z, θ, 0)``
 2. centering: ``σ = clamp(μaff/μ, 0, 1)³`` with ``μ = y1ᵀy2/ny``
@@ -14,9 +13,16 @@ s2]``):
    over the corrected and the pure centering direction.
 
 Convergence: ``rvio ≤ r_tol ∧ κvio ≤ κ_tol`` measured on ``r(z, θ, 0)``.
-Every lane runs ``fixed_iters`` masked iterations: a lane that has
-converged, or whose trial iterate is not finite, keeps its state, so no
-value is read back to the host inside the loop.
+
+Two loops. ``fixed_iters > 0``: every problem runs that many masked
+iterations (a problem that has converged, or whose trial iterate is not
+finite, keeps its state), and no value is read back to the host. Otherwise
+the adaptive loop: each problem iterates until it has converged or reached
+``max_iter``, as under a vmapped ``while_loop``; the loop runs while any
+problem is live and reads that one flag from the device each trip.
+
+Solution sensitivities (``diff_sol``): ``dz = −rz⁻¹ rθ = ∂z*/∂θ`` by one
+more solve with ``nθ`` right-hand sides.
 """
 
 from __future__ import annotations
@@ -25,10 +31,10 @@ import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import jacfwd, jvp, vmap
 
 from ..dims import Dims
-from ..ops.linsolve import gj_inverse, mv
+from ..ops.linsolve import gj_inverse
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +63,7 @@ class IPResult(NamedTuple):
     iterations: torch.Tensor  # (B,) int32
     rvio: torch.Tensor        # (B,) residual violation at κ = 0
     kvio: torch.Tensor        # (B,) bilinear violation at κ = 0
-    dz: Optional[torch.Tensor]  # sensitivities (not computed on this path)
+    dz: Optional[torch.Tensor]  # (B, nz, nθ) sensitivity ∂z*/∂θ or None
 
 
 def _violations(dims: Dims, r):
@@ -77,13 +83,65 @@ def _step_length(y, dy, tau):
     return torch.clamp(torch.amin(ratio, dim=-1), max=1.0)
 
 
-def z_initialize(dims: Dims, q, dtype=None):
+def _linearized_only(cone: str):
+    if cone != "linearized":
+        raise NotImplementedError("the nonlinear cone is not ported yet")
+
+
+def z_initialize(dims: Dims, q, dtype=None, cone: str = "linearized"):
     """z_initialize! (simulation.jl:53-81), linearized cone: ones with the
     q2 slot set. ``q`` is (..., nq)."""
+    _linearized_only(cone)
     dtype = dtype or q.dtype
     ones = torch.ones(q.shape[:-1] + (dims.nz - dims.nq,), dtype=dtype,
                       device=q.device)
     return torch.cat([q.to(dtype), ones], dim=-1)
+
+
+def z_warmstart(dims: Dims, q, z_prev, generator=None, amplitude=1.0e-3,
+                cone: str = "linearized", draw=None):
+    """z_warmstart! (simulation.jl:87-107): the previous solution's cone
+    variables, nudged into the interior by a positive uniform perturbation
+    of the given amplitude, with the q2 slot pinned again. ``q`` is
+    (..., nq) and ``z_prev`` (..., nz). The perturbation is ``amplitude``
+    times ``draw`` (..., nz − nq) where given, else times a uniform [0, 1)
+    draw from ``generator`` (the default generator when None)."""
+    _linearized_only(cone)
+    cone_prev = z_prev[..., dims.nq:]
+    if draw is None:
+        draw = torch.rand(cone_prev.shape, generator=generator,
+                          dtype=z_prev.dtype, device=z_prev.device)
+    return torch.cat([q.to(z_prev.dtype), cone_prev + amplitude * draw],
+                     dim=-1)
+
+
+def make_dense_solver(dims: Dims, jacobian_fn, opts: IPOptions,
+                      clamp_bilinear: bool = True):
+    """Regularized dense LU backend. ``jacobian_fn(z, θ)`` gives the batch
+    of Jacobians (B, nz, nz). The bilinear diagonal blocks are clamped
+    from below by ``γ_reg κvio`` (y1_reg/y2_reg in rzlin!,
+    linearized_solver.jl:390-394); ``clamp_bilinear=False`` keeps the
+    Jacobian as it is."""
+    nx, ny = dims.nx, dims.ny
+    ne = nx + ny
+
+    def factor(z, theta, kvio):
+        rz = jacobian_fn(z, theta)
+        if clamp_bilinear:
+            reg = opts.gamma_reg * kvio[:, None]
+            y1 = torch.maximum(z[:, nx:ne], reg)
+            y2 = torch.maximum(z[:, ne:], reg)
+            rz = torch.cat([rz[:, :ne], torch.cat([
+                rz[:, ne:, :nx], torch.diag_embed(y2), torch.diag_embed(y1)],
+                dim=-1)], dim=-2)
+        return torch.linalg.lu_factor_ex(rz)[:2]
+
+    def solve(factors, rhs):
+        vec = rhs.dim() == 2
+        out = torch.linalg.lu_solve(*factors, rhs[..., None] if vec else rhs)
+        return out[..., 0] if vec else out
+
+    return factor, solve
 
 
 def make_ncp_schur_solver(dims: Dims, residual_fn, opts: IPOptions):
@@ -97,6 +155,8 @@ def make_ncp_schur_solver(dims: Dims, residual_fn, opts: IPOptions):
     factorization per IP iteration. The Dx/Rx/Dy1/Ry1 blocks are the
     forward-mode Jacobian of the equality rows in the (x, y1) directions
     only. ``residual_fn`` acts on one sample; the batch is a ``vmap``.
+    ``solve`` takes one right-hand side a problem (B, nz) or a matrix of
+    them (B, nz, R).
     """
     nx, ny = dims.nx, dims.ny
     ne = nx + ny
@@ -123,41 +183,65 @@ def make_ncp_schur_solver(dims: Dims, residual_fn, opts: IPOptions):
         return (dxi, dy1, cai, gj_inverse(s), y1r, y2r)
 
     def solve(factors, rhs):
-        """One right-hand side per problem, (B, nz)."""
         dxi, dy1, cai, si, y1r, y2r = factors
-        r1, r2, r3 = rhs[:, :nx], rhs[:, nx:ne], rhs[:, ne:]
-        r2p = r2 - r3 / y1r
-        dy1_sol = mv(si, r2p - mv(cai, r1))
-        dx_sol = mv(dxi, r1 - mv(dy1, dy1_sol))
-        dy2_sol = (r3 - y2r * dy1_sol) / y1r
-        return torch.cat([dx_sol, dy1_sol, dy2_sol], dim=-1)
+        vec = rhs.dim() == 2
+        r = rhs[..., None] if vec else rhs
+        r1, r2, r3 = r[:, :nx], r[:, nx:ne], r[:, ne:]
+        r2p = r2 - r3 / y1r[..., None]
+        dy1_sol = si @ (r2p - cai @ r1)
+        dx_sol = dxi @ (r1 - dy1 @ dy1_sol)
+        dy2_sol = (r3 - y2r[..., None] * dy1_sol) / y1r[..., None]
+        out = torch.cat([dx_sol, dy1_sol, dy2_sol], dim=1)
+        return out[..., 0] if vec else out
 
     return factor, solve
 
 
 def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
-             cone: str = "linearized") -> IPResult:
+             jacobian_fn: Optional[Callable] = None,
+             rtheta_fn: Optional[Callable] = None, linear_solver=None,
+             cone: str = "linearized", batched: bool = False) -> IPResult:
     """Solve ``r(z, θ, κ→κ_tol) = 0`` for a batch: ``z0`` (B, nz) and
-    ``theta`` (B, nθ); ``residual_fn(z, θ, κ)`` acts on one sample.
+    ``theta`` (B, nθ).
 
-    Only the path the MPC rollout runs is ported: the linearized cone,
-    ``fixed_iters > 0``, no refinement, retries or sensitivities.
+    ``residual_fn(z, θ, κ)``, ``jacobian_fn(z, θ)`` and ``rtheta_fn(z, θ)``
+    act on one sample and are batched here with ``vmap``; ``rtheta_fn``
+    defaults to the forward-mode derivative of ``residual_fn``.
+    ``jacobian_fn`` is there for the JAX package's signature: only its
+    dense backend reads one, and ``make_dense_solver`` takes it directly. With
+    ``batched=True`` the three take the whole batch instead (problems
+    whose data differs from one to the next, as the MPC's pre-linearized
+    knots): ``residual_fn`` then gets ``z`` as (B, nz) with ``κ`` (B,), or
+    as (B, C, nz) with ``κ`` (B, C) for the C line-search candidates of a
+    problem, and ``rtheta_fn`` must be given where ``diff_sol`` is set.
+
+    ``linear_solver`` is a ``(factor, solve)`` pair on the batch:
+    ``factor(z, θ, κvio)`` and ``solve(factors, rhs)`` with ``rhs`` (B, nz)
+    or (B, nz, R). It defaults to the structured Schur elimination of
+    ``make_ncp_schur_solver``.
     """
-    if (cone != "linearized" or opts.fixed_iters <= 0 or opts.refine
-            or opts.retries or opts.diff_sol):
-        raise NotImplementedError(
-            "ip_solve is ported for the masked fixed-iteration linearized "
-            "path only (fixed_iters > 0, refine = retries = 0, no diff_sol)")
+    _linearized_only(cone)
     dtype = z0.dtype
     nx, ny = dims.nx, dims.ny
     ne = nx + ny
     n_cand = opts.max_ls + 1
-    factor_fn, solve_fn = make_ncp_schur_solver(dims, residual_fn, opts)
-    res_b = vmap(residual_fn)
     batch = z0.shape[0]
 
-    def residual(z, kappa):
-        return res_b(z, theta, kappa)
+    if batched:
+        residual = residual_fn
+    else:
+        res_one = vmap(residual_fn)
+        res_cand = vmap(vmap(residual_fn, in_dims=(0, None, 0)))
+
+        def residual(z, th, kappa):
+            return (res_one if z.dim() == 2 else res_cand)(z, th, kappa)
+
+    if linear_solver is None:
+        if batched:
+            raise ValueError("ip_solve: batched callables need a "
+                             "linear_solver")
+        linear_solver = make_ncp_schur_solver(dims, residual_fn, opts)
+    factor_fn, solve_fn = linear_solver
 
     halvings = torch.clamp(
         0.5 ** torch.arange(n_cand, dtype=dtype, device=z0.device),
@@ -165,7 +249,6 @@ def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
     kappa_floor = opts.kappa_tol / opts.undercut
     one = torch.ones((batch,), dtype=dtype, device=z0.device)
     zero = torch.zeros_like(one)
-    theta_c = theta.repeat_interleave(2 * n_cand, dim=0)
 
     def cone_step_length(z, d, tau):
         return torch.minimum(_step_length(z[:, nx:ne], d[:, nx:ne], tau),
@@ -174,11 +257,44 @@ def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
     def cone_mu(z):
         return torch.sum(z[:, nx:ne] * z[:, ne:], dim=-1) / ny
 
+    def apply_reg_jacobian(z, kvio, d):
+        """The regularized Jacobian, the operator the factorization
+        represents, on one step a problem (B, nz): equality rows by a JVP
+        of the residual, bilinear rows with the γ_reg-clamped diagonals.
+        Refining against it corrects only the rounding of the structured
+        solve, so the correction contracts; against the unclamped Jacobian
+        it diverges wherever the clamp is active."""
+        if batched:
+            jd = jvp(lambda zz: residual_fn(zz, theta, zero), (z,), (d,))[1]
+        else:
+            jd = vmap(lambda zz, th, dd: jvp(
+                lambda x: residual_fn(x, th, 0.0), (zz,), (dd,))[1])(
+                    z, theta, d)
+        reg = opts.gamma_reg * kvio[:, None]
+        y1r = torch.maximum(z[:, nx:ne], reg)
+        y2r = torch.maximum(z[:, ne:], reg)
+        bil = y2r * d[:, nx:ne] + y1r * d[:, ne:]
+        return torch.cat([jd[:, :ne], bil], dim=-1)
+
+    def refined(z, kvio, factors, rhs):
+        """One structured solve and ``opts.refine`` passes of iterative
+        refinement against the factorization's own operator; ``rhs`` is
+        (B, nz) or (B, nz, R)."""
+        d = solve_fn(factors, rhs)
+        for _ in range(opts.refine):
+            if rhs.dim() == 2:
+                kd = apply_reg_jacobian(z, kvio, d)
+            else:
+                kd = torch.stack([apply_reg_jacobian(z, kvio, d[..., c])
+                                  for c in range(d.shape[-1])], dim=-1)
+            d = d + solve_fn(factors, rhs - kd)
+        return d
+
     def body(z, r0, rvio, kvio):
         # r0 is r(z, θ, 0), carried from the previous trip; r(z, θ, κ)
         # differs from it by −κ on the bilinear rows only
         factors = factor_fn(z, theta, kvio)
-        d_aff = solve_fn(factors, r0)
+        d_aff = refined(z, kvio, factors, r0)
         alpha_aff = cone_step_length(z, d_aff, one)
         mu = cone_mu(z)
         mu_aff = cone_mu(z - alpha_aff[:, None] * d_aff)
@@ -189,8 +305,8 @@ def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
         r_center = torch.cat([r0[:, :ne], r0[:, ne:] - kappa_t[:, None]], -1)
         r_cor = torch.cat([r_center[:, :ne], r_center[:, ne:]
                            + d_aff[:, nx:ne] * d_aff[:, ne:]], -1)
-        d_cor = solve_fn(factors, r_cor)
-        d_cen = solve_fn(factors, r_center)
+        d_cor = refined(z, kvio, factors, r_cor)
+        d_cen = refined(z, kvio, factors, r_center)
 
         tau = torch.clamp(1.0 - torch.maximum(rvio, kvio) ** 2,
                           opts.tau_min, opts.tau_max)
@@ -201,39 +317,84 @@ def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
                             a0_cen[:, None] * halvings], dim=1)  # (B, C)
         dirs = torch.stack([d_cor, d_cen], dim=1).repeat_interleave(
             n_cand, dim=1)                                       # (B, C, nz)
-        z_c = (z[:, None, :] - alphas[..., None] * dirs).reshape(-1, dims.nz)
-        rr = res_b(z_c, theta_c, kappa_t.repeat_interleave(2 * n_cand))
-        merits = torch.sum(rr ** 2, dim=-1).reshape(batch, 2 * n_cand)
+        z_c = z[:, None, :] - alphas[..., None] * dirs
+        rr = residual(z_c, theta, kappa_t[:, None].expand(-1, 2 * n_cand))
+        merits = torch.sum(rr ** 2, dim=-1)
         ok = merits < (1.0 - 1.0e-3 * alphas) * merit0[:, None]
         pick = torch.where(ok.any(dim=1), ok.to(torch.int8).argmax(dim=1),
                            merits.argmin(dim=1))
         alpha = alphas.gather(1, pick[:, None])
         d = dirs.gather(1, pick[:, None, None].expand(-1, 1, dims.nz))[:, 0]
         z_new = z - alpha * d
-        r_new = residual(z_new, zero)
+        r_new = residual(z_new, theta, zero)
         rvio_n, kvio_n = _violations(dims, r_new)
         return z_new, r_new, rvio_n, kvio_n
 
-    r = residual(z0, zero)
-    rvio, kvio = _violations(dims, r)
-    done = (rvio <= opts.r_tol) & (kvio <= opts.kappa_tol)
-    z = z0
-    it = torch.zeros((batch,), dtype=torch.int32, device=z0.device)
-    for _ in range(opts.fixed_iters):
-        z_n, r_n, rvio_n, kvio_n = body(z, r, rvio, kvio)
-        keep = done | ~torch.isfinite(z_n).all(dim=-1)
-        z = torch.where(keep[:, None], z, z_n)
-        r = torch.where(keep[:, None], r, r_n)
-        rvio = torch.where(keep, rvio, rvio_n)
-        kvio = torch.where(keep, kvio, kvio_n)
-        it = torch.where(keep, it, it + 1)
-        done = torch.where(keep, done,
-                           (rvio_n <= opts.r_tol) & (kvio_n <= opts.kappa_tol))
+    def run_from(z):
+        r = residual(z, theta, zero)
+        rvio, kvio = _violations(dims, r)
+        done = (rvio <= opts.r_tol) & (kvio <= opts.kappa_tol)
+        it = torch.zeros((batch,), dtype=torch.int32, device=z0.device)
+        trip = 0
+        while True:
+            if opts.fixed_iters > 0:
+                if trip == opts.fixed_iters:
+                    break
+                live = ~done
+            else:
+                # the adaptive loop's one read from the device a trip
+                live = ~done & (it < opts.max_iter)
+                if not bool(live.any()):
+                    break
+            trip += 1
+            z_n, r_n, rvio_n, kvio_n = body(z, r, rvio, kvio)
+            if opts.fixed_iters > 0:
+                # a non-finite trial iterate keeps the last finite one;
+                # the adaptive loop has no such guard and a problem gone
+                # NaN iterates on to max_iter (reset after the loop)
+                live = live & torch.isfinite(z_n).all(dim=-1)
+            z = torch.where(live[:, None], z_n, z)
+            r = torch.where(live[:, None], r_n, r)
+            rvio = torch.where(live, rvio_n, rvio)
+            kvio = torch.where(live, kvio_n, kvio)
+            it = it + live.to(torch.int32)
+            done = torch.where(
+                live, (rvio_n <= opts.r_tol) & (kvio_n <= opts.kappa_tol),
+                done)
+        return z, rvio, kvio, it, done
+
+    z, rvio, kvio, it, done = run_from(z0)
+
+    # cold-restart retries: a failed solve starts again from the cold
+    # initializer; converged problems enter with done set and iterate no
+    # further (their iteration count restarts at 0, as the reference's does)
+    for _ in range(opts.retries):
+        z_cold = z_initialize(dims, z0[:, dims.iq2], dtype)
+        z, rvio, kvio, it, done = run_from(
+            torch.where(done[:, None], z, z_cold))
 
     # divergence guard: a non-finite solve returns the (finite) initial
     # iterate marked non-converged (rvio/kvio keep the diverged values)
     bad = ~torch.isfinite(z).all(dim=-1)
     z = torch.where(bad[:, None], z0, z)
     done = done & ~bad
+
+    dz = None
+    if opts.diff_sol:
+        if rtheta_fn is not None:
+            rtheta = (rtheta_fn if batched else vmap(rtheta_fn))(z, theta)
+        elif batched:
+            raise ValueError("ip_solve: diff_sol with batched callables "
+                             "needs rtheta_fn")
+        else:
+            rtheta = vmap(lambda zz, th: jacfwd(
+                lambda t: residual_fn(zz, t, 0.0))(th))(z, theta)
+        dz = refined(z, kvio, factor_fn(z, theta, kvio), -rtheta)
+        # a singular factorization can give non-finite sensitivities at a
+        # finite z: zero them and flag the problem
+        dz_bad = ~torch.isfinite(dz).all(dim=-1).all(dim=-1)
+        dz = torch.where(dz_bad[:, None, None], torch.zeros_like(dz), dz)
+        done = done & ~dz_bad
+
     return IPResult(z=z, converged=done, iterations=it, rvio=rvio,
-                    kvio=kvio, dz=None)
+                    kvio=kvio, dz=dz)

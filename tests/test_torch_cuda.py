@@ -22,6 +22,10 @@ from contactimplicitmpc_tpu_torch.hotpath import (HotPathConfig,
                                                   conf_initial_states,
                                                   make_quadruped_rollout)
 from contactimplicitmpc_tpu_torch.models.base import dims_of
+from contactimplicitmpc_tpu_torch.control.implicit_dynamics import \
+    default_mpc_ip_options
+from contactimplicitmpc_tpu_torch.dims import Dims
+from contactimplicitmpc_tpu_torch.models.hopper_2d import hopper_2d
 from contactimplicitmpc_tpu_torch.models.quadruped import quadruped
 from contactimplicitmpc_tpu_torch.ops import knot_ip as knot_mod
 from contactimplicitmpc_tpu_torch.ops.fixed_ip import linearized_ip_fixed
@@ -254,3 +258,143 @@ def test_main_path_runs_through_kernel(card):
         if x.is_floating_point():
             assert torch.isfinite(x).all(), name
     assert bool(res.sim_converged.all())
+
+
+# ---- the second instantiation: hopper_2d on flat ground --------------------
+
+H_DIMS = dims_of(hopper_2d, flat_2d_lc)
+H_KAPPA = 1.0e-4
+H_OPTS = default_mpc_ip_options(H_KAPPA)
+
+
+def hopper_problems(device, lanes, trials, stages):
+    """(lanes, trials, stages) problems over the first ``stages`` knots of
+    the hopper's in-place gait, float32, θ perturbed as ``knot_problems``
+    perturbs the quadruped's."""
+    ref = from_gait(hopper_2d, flat_2d_lc,
+                    load_gait("hopper_2D", "gait_in_place"), kappa=H_KAPPA,
+                    dtype=torch.float32, device=device)
+    lin = linearize_trajectory(hopper_2d, flat_2d_lc, ref, H_KAPPA)
+    shape = (lanes, trials, stages)
+    noise = np.random.default_rng(0).standard_normal(shape + (H_DIMS.ntheta,))
+    theta = ref.theta[:stages] + 0.003 * torch.as_tensor(
+        noise, dtype=torch.float32, device=device)
+    q2 = ref.q[2:stages + 2].expand(shape + (H_DIMS.nq,)).contiguous()
+    alt = torch.zeros(shape + (H_DIMS.nc,), dtype=torch.float32,
+                      device=device)
+    return ([x[:stages].contiguous() for x in lin]
+            + [alt, theta.contiguous(), q2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,trials,stages", [(16, 7, 10), (16, 1, 10),
+                                                 (1, 1, 3), (37, 7, 10)])
+@pytest.mark.parametrize("iters,refine", [(1, 0), (3, 0), (3, 1)])
+def test_hopper_kernel_matches_plain_early(card, lanes, trials, stages, iters,
+                                           refine):
+    """The hopper's instantiation (nx 4, ny 4, nθ 14, nc 1: no sensitivity
+    column past the warp's lanes, idle lanes past NY, NE and NT) after 1
+    and 3 iterations, at the direct path's two shapes (K = 10 knots), a
+    3-knot one and one of 2590 problems (8 warps a block, ragged): every
+    problem to 1e-4 in z and 1e-3 of its scale in dz."""
+    import dataclasses
+    opts = dataclasses.replace(H_OPTS, refine=refine)
+    problems = hopper_problems(card, lanes, trials, stages)
+    before = knot_ip.launches
+    out = knot_ip(H_DIMS, *problems, opts, iters)
+    want = linearized_ip_fixed(H_DIMS, *problems, opts, iters)
+    torch.cuda.synchronize()
+    assert knot_ip.launches == before + 1
+    assert torch.isfinite(out.z).all() and torch.isfinite(out.dz).all()
+    assert float((out.z - want.z).abs().max()) < 1e-4
+    assert float(dz_rel(out, want).max()) < 1e-3
+    assert bool((out.converged == want.converged).all())
+
+
+@pytest.mark.cuda
+def test_hopper_prologue_packs_knot_constants(card):
+    """The prologue at the hopper's dimensions against the plain packing."""
+    knots = hopper_problems(card, 1, 1, 10)[:5]
+    got = knot_mod.pack_knots(H_DIMS, *knots)
+    want = knot_mod.pack_knots_plain(H_DIMS, *knots)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (10, knot_mod.pack_layout(H_DIMS).size)
+    exact = {"rza", "dy1", "ry1d", "ry2", "z0", "r0", "theta0", "rtheta0"}
+    blocks = knot_mod.pack_blocks(H_DIMS, want)
+    for name, a in knot_mod.pack_blocks(H_DIMS, got).items():
+        b = blocks[name]
+        if name in exact:
+            assert torch.equal(a, b), name
+        else:
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
+    assert bool((got[want == 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_quadruped_kernel_at_ten_knots(card):
+    """The quadruped's instantiation at the direct path's K = 10 knots
+    (structure mode has 9)."""
+    out, want = both(knot_problems(card, 16, TRIALS, 10), 3)
+    assert float((out.z - want.z).abs().max()) < 1e-4
+    assert float(dz_rel(out, want).max()) < 1e-3
+    assert bool((out.converged == want.converged).all())
+
+
+@pytest.mark.cuda
+def test_model_without_instantiation_raises(card):
+    """Dimensions the build does not hold (the 2D particle's here) raise on
+    CUDA tensors: no fallback to the plain version."""
+    dims = Dims(nq=2, nu=2, nw=2, nc=1, nf=2, ne=2)
+    nz, nt = dims.nz, dims.ntheta
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=card)
+    args = [zeros(3, nz), zeros(3, nt), zeros(3, nz), zeros(3, nz, nz),
+            zeros(3, nz, nt), zeros(2, 3, dims.nc), zeros(2, 3, nt),
+            zeros(2, 3, dims.nq)]
+    before = knot_ip.launches
+    with pytest.raises(RuntimeError, match="unsupported dims"):
+        knot_ip(dims, *args, H_OPTS, 3)
+    assert knot_ip.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("newton_mode", ["direct", "structure"])
+def test_general_path_runs_through_kernel(card, newton_mode):
+    """``simulate`` + ``ci_mpc_policy`` on the hopper, on the card (4 lanes
+    × 10 steps, 2 control updates, adaptive sim solves): the knot solves of
+    both Newton modes launch the kernel, every output is a finite CUDA
+    tensor and every step converges."""
+    import contactimplicitmpc_tpu_torch as pt
+    from contactimplicitmpc_tpu_torch.control.implicit_dynamics import \
+        CONFIGURATION
+    from contactimplicitmpc_tpu_torch.control.newton import NewtonOptions
+    from contactimplicitmpc_tpu_torch.control.objective import \
+        tracking_objective
+    from contactimplicitmpc_tpu_torch.control.trajectory import \
+        initial_conditions
+    from contactimplicitmpc_tpu_torch.sim.interior_point import IPOptions
+
+    ref = from_gait(hopper_2d, flat_2d_lc,
+                    load_gait("hopper_2D", "gait_in_place"), kappa=H_KAPPA,
+                    dtype=torch.float32, device=card)
+    obj = tracking_objective(H_DIMS, 10, q=1e-2 * np.array([0.1, 3, 1, 3]),
+                             u=[3e-3, 1.0], dtype=torch.float32, device=card)
+    policy = pt.ci_mpc_policy(
+        hopper_2d, flat_2d_lc, ref, obj, h_mpc=10, n_sample=5,
+        kappa_mpc=H_KAPPA, mode=CONFIGURATION, newton_mode=newton_mode,
+        n_opts=NewtonOptions(r_tol=3e-4, max_iter=5, fixed_ip_iters=8))
+    q1, v1 = initial_conditions(ref)
+    offsets = 0.02 * torch.as_tensor(
+        np.random.default_rng(0).uniform(-1, 1, (4, 4)), dtype=torch.float32,
+        device=card)
+    before = knot_ip.launches
+    traj = pt.simulate(
+        hopper_2d, flat_2d_lc, 10, float(ref.h) / 5, q1[None] + offsets,
+        v1.expand(4, -1).contiguous(), policy=policy,
+        opts=IPOptions(r_tol=1e-3, kappa_tol=1e-5, max_iter=40, max_ls=6))
+    torch.cuda.synchronize()
+    assert knot_ip.launches >= before + 2
+    for name, x in traj._asdict().items():
+        assert x.is_cuda, name
+        if x.is_floating_point():
+            assert torch.isfinite(x).all(), name
+    assert bool(pt.status(traj).all())

@@ -10,8 +10,10 @@ import torch
 
 import contactimplicitmpc_tpu_torch as pt
 from contactimplicitmpc_tpu_torch import interop
-from contactimplicitmpc_tpu_torch.control.objective import tracking_objective
-from contactimplicitmpc_tpu_torch.control.trajectory import from_gait
+from contactimplicitmpc_tpu_torch.control.objective import (
+    tracking_objective, tracking_velocity_objective)
+from contactimplicitmpc_tpu_torch.control.trajectory import (
+    contact_trajectory, from_gait)
 from contactimplicitmpc_tpu_torch.hotpath import (HotPathConfig,
                                                   make_quadruped_rollout,
                                                   quadruped_tracking_weights)
@@ -21,6 +23,14 @@ from contactimplicitmpc_tpu_torch.utils.gaits import load_gait
 
 DIMS = dims_of(quadruped, pt.flat_2d_lc)
 Pair = collections.namedtuple("Pair", "a b")
+Q = torch.zeros(2, DIMS.nq)
+
+
+def played(pair, *args):
+    """The first input a policy or disturbance gives two CPU lanes."""
+    init_state, apply = pair
+    return apply(init_state(2), *args)[0]
+
 
 ENTRY_POINTS = {
     "make_quadruped_rollout": lambda **kw: make_quadruped_rollout(
@@ -32,6 +42,18 @@ ENTRY_POINTS = {
         DIMS, 10, q=np.ones(DIMS.nq), **kw).q,
     "quadruped_tracking_weights": lambda **kw: quadruped_tracking_weights(
         DIMS, 10, torch.float32, **kw).q,
+    "tracking_velocity_objective": lambda **kw: tracking_velocity_objective(
+        DIMS, 10, v=np.ones(DIMS.nq), **kw).v,
+    "contact_trajectory": lambda **kw: contact_trajectory(
+        DIMS, 4, 0.01, **kw).theta,
+    "open_loop_policy": lambda **kw: played(pt.open_loop_policy(
+        np.ones((3, DIMS.nu)), **kw), pt.PolicyObs(Q, Q, Q[:, :4], 0)),
+    "open_loop_disturbances": lambda **kw: played(pt.open_loop_disturbances(
+        np.ones((3, DIMS.nw)), **kw), Q, 0),
+    "impulse_disturbances": lambda **kw: played(pt.impulse_disturbances(
+        np.ones((1, DIMS.nw)), [0], **kw), Q, 0),
+    "random_disturbances": lambda **kw: played(pt.random_disturbances(
+        None, quadruped, 1.0, 3, **kw), Q, 0),
     "interop.tensors": lambda **kw: interop.tensors(
         Pair, Pair(a=np.zeros(3), b=np.ones(2)), **kw).a,
 }
