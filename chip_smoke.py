@@ -7,8 +7,9 @@ Phases (any failure raises and the script exits non-zero):
 1. device — require CUDA, print the card's name and power limit, pin full
    float32 products;
 2. build — compile the knot interior-point kernel (csrc/knot_ip.cu) from
-   this checkout with nvcc; one build holds both instantiations
-   (quadruped and 2D hopper);
+   this checkout with nvcc; one build holds the three instantiations
+   (quadruped and 2D hopper a warp a problem, the centroidal quadruped a
+   block a problem);
 3. kernel against its plain version, at the quadruped's dimensions — the
    gait2 knots linearized on the card, θ perturbed by 0.003·N(0, 1) from
    numpy.random.default_rng(0), at the structure path's two shapes (16
@@ -31,14 +32,20 @@ Phases (any failure raises and the script exits non-zero):
    37 × 7 × 10 = 2590: every problem after 1 and 3 iterations, shares
    after 8, the prologue, times and bounds; and a model the build does not
    hold raises;
-5. path A — the flat-ground quadruped closed-loop MPC rollout at the
+5. the wide template (a block a problem) at the centroidal quadruped's
+   dimensions (nx 18, ny 24, nθ 53, nc 4) — the in-place trot's knots on
+   flat_3d_lc with examples/centroidal_trot.py's float32 knot options, N =
+   16 × 7 × 10 = 1120, 16 × 1 × 10 = 160, 3 and 64 × 7 × 10 = 4480: every
+   problem after 1 and 3 iterations, shares after 8, the prologue, times
+   and bounds;
+6. path A — the flat-ground quadruped closed-loop MPC rollout at the
    HotPathConfig defaults (structure-mode Newton), float32, 16 lanes × 50
    sim steps, with the kernel's launch counter read around it and the
    closed-loop health checked as tests/test_hotpath.py checks the JAX
    package: the same 16 lanes (``hotpath.conf_initial_states``), the
    nominal lane inside the reference CI thresholds, at least 90% of lanes
    with ≥ 95% converged sim steps;
-6. path B — the general path on the 2D hopper, the configuration of
+7. path B — the general path on the 2D hopper, the configuration of
    examples/hopper_monte_carlo.py: ``simulate`` driven by
    ``ci_mpc_policy`` with direct-mode Newton (8 fixed knot iterations, so
    that the knot solves launch the kernel) and adaptive sim solves, 16
@@ -50,16 +57,28 @@ Phases (any failure raises and the script exits non-zero):
    and stays inside tests/test_mpc_hopper.py's bounds (its height bound is
    taken at that test's step 500; at step 100 the gait is at its apex, and
    the band here is the example's 0 < z < 1);
-7. path C — the quadruped through ``mpc_rollout`` with
+8. path C — the quadruped through ``mpc_rollout`` with
    ``HotPathConfig(newton_mode="direct")`` (a 300 × 300 KKT a lane), 16
    lanes × 25 sim steps, the health of path A;
-8. spans — each path once more for 2 control periods with host-synchronised
-   spans on (sim IP, Newton, of it the KKT solve and the knot kernel).
+9. path D — the centroidal quadruped (18 DoF, 3D) through ``mpc_rollout``
+   in examples/centroidal_trot.py's configuration (direct-mode Newton in
+   configuration mode, a 480 × 480 KKT a lane, fixed 8-iteration knot
+   solves on the wide template, adaptive float32 sim solves, a warm-start
+   floor of 1e-2), 16 lanes × 50 sim steps: lane 0 nominal, lanes 1-15 the
+   body moved by 0.02 in position and 0.05 in Euler angles
+   (assets/centroidal_offsets16.npz, tools/centroidal_lanes_reference.py).
+   The nominal lane converges every step with q error < 0.05 and a lowest
+   body height above half the reference's; at most one lane fewer than the
+   JAX package's 16 converges every step;
+10. spans — each path once more for 2 control periods with
+   host-synchronised spans on (sim IP, Newton, of it the KKT solve and the
+   knot kernel).
 
 JSON lines give the bound and the kernel's share of it at each timed
 shape; the line before the card's name is a JSON object with the kernel's
-comparison, launches (summed over the three paths), times and bound at
-path A's N = 1008 and, beside them, the hopper instantiation's; the last
+comparison, launches (summed over the four paths, and by path), times and
+bound at path A's N = 1008 and, beside them, the hopper instantiation's
+and the centroidal quadruped's at N = 1120; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -79,16 +98,19 @@ from contactimplicitmpc_tpu_torch.control.implicit_dynamics import (
 from contactimplicitmpc_tpu_torch.control.linearized import \
     linearize_trajectory
 from contactimplicitmpc_tpu_torch.control.newton import NewtonOptions
+from contactimplicitmpc_tpu_torch.control.rollout import mpc_rollout
 from contactimplicitmpc_tpu_torch.control.objective import \
     tracking_velocity_objective
 from contactimplicitmpc_tpu_torch.control.trajectory import (
     from_gait, initial_conditions, tracking_errors)
 from contactimplicitmpc_tpu_torch.dims import Dims
-from contactimplicitmpc_tpu_torch.env import flat_2d_lc
+from contactimplicitmpc_tpu_torch.env import flat_2d_lc, flat_3d_lc
 from contactimplicitmpc_tpu_torch.hotpath import (HotPathConfig,
                                                   conf_initial_states,
                                                   make_quadruped_rollout)
 from contactimplicitmpc_tpu_torch.models.base import dims_of
+from contactimplicitmpc_tpu_torch.models.centroidal_quadruped import \
+    centroidal_quadruped
 from contactimplicitmpc_tpu_torch.models.hopper_2d import hopper_2d
 from contactimplicitmpc_tpu_torch.models.quadruped import quadruped
 from contactimplicitmpc_tpu_torch.ops import knot_ip as knot_mod
@@ -124,6 +146,20 @@ DZ_TOL, DZ_SHARE = 1e-2, 0.93   # dz relative to the problem's largest entry
 # 5e-3 (largest 4.2e-3) and 99.9% of dz within 1e-2.
 HOPPER_SHARES = {"conv_agree": 0.97, "q2_share": 0.97, "z_share": 0.95,
                  "dz_share": 0.95}
+# The centroidal quadruped's (the wide template) after 8 iterations, set the
+# same way (tools/knot_ip_spread.py centroidal_quadruped, the trot's 1120
+# problems, examples/centroidal_trot.py's float32 knot options): every
+# problem converges in both, and JAX and the plain version agree on 100% of
+# flags, q2 blocks within 1e-3, z within 5e-3 (largest 1.6e-5) and dz within
+# 1e-2 (largest 4.1e-5 of its scale); the bounds are the hopper's.
+CENTROIDAL_SHARES = dict(HOPPER_SHARES)
+# Path D's lanes in the JAX package (tools/centroidal_lanes_reference.py,
+# float32 on the CPU, the same 16 lanes × 50 steps with fixed 8-iteration
+# knot solves): all 16 converge every sim step; nominal q/u/γ/b errors
+# 0.000357 / 0.0832 / 0.253 / 0.0280, lowest body height 0.2996 nominal and
+# 0.2853–0.3025 over the lanes against the reference's 0.2995, 2.44 Newton
+# iterations a period. The port may lose one lane.
+CENTROIDAL_JAX_OK = 16
 QUADRUPED_SHARES = {"conv_agree": CONV_AGREE, "q2_share": Q2_SHARE,
                     "z_share": Z_SHARE, "dz_share": DZ_SHARE}
 # The prologue's products and inverse against the plain packing: both sum
@@ -162,6 +198,9 @@ def cuda_ms(fn, reps, spin=False):
 HOPPER_OFFSETS = os.path.join(
     os.path.dirname(os.path.abspath(pt.__file__)), "assets",
     "hopper_offsets16.npz")
+CENTROIDAL_OFFSETS = os.path.join(
+    os.path.dirname(os.path.abspath(pt.__file__)), "assets",
+    "centroidal_offsets16.npz")
 
 
 def knot_problems(lin, ref, lanes, trials, stages, rng, dims):
@@ -244,17 +283,18 @@ def compare_full(dims, out, ref, bounds, converged_only=True):
 
 
 def kernel_phase(name, model, gait, kappa, opts, iters, shapes, shares,
-                 timed, tag, update_friction=False, converged_only=True):
+                 timed, tag, update_friction=False, converged_only=True,
+                 env=flat_2d_lc):
     """One instantiation against its plain version: every problem of
     ``shapes`` (lanes, trials, knots) after 1 and 3 iterations, shares of
     the first shape after ``iters``, the prologue, and times and bounds of
     the ``timed`` shapes. Returns (largest |Δz|, {N: (kernel ms, plain ms,
     bound ms, bound by)})."""
-    dims = dims_of(model, flat_2d_lc)
-    ref = from_gait(model, flat_2d_lc, gait, kappa=kappa,
+    dims = dims_of(model, env)
+    ref = from_gait(model, env, gait, kappa=kappa,
                     update_friction=update_friction, dtype=torch.float32,
                     device="cuda")
-    lin = linearize_trajectory(model, flat_2d_lc, ref, kappa)
+    lin = linearize_trajectory(model, env, ref, kappa)
     rng = np.random.default_rng(0)
 
     def pair(problems, n_iter=iters):
@@ -461,6 +501,95 @@ def hopper_path(dev, tag):
     return launches
 
 
+def centroidal_options(kappa):
+    """examples/centroidal_trot.py's float32 knot and sim options, and its
+    Newton options with fixed 8-iteration knot solves (the kernel's form)."""
+    mpc_ip = IPOptions(r_tol=1e-4, kappa_tol=kappa, max_iter=30,
+                       undercut=5.0, gamma_reg=0.1, diff_sol=True, max_ls=3,
+                       refine=1)
+    sim_opts = IPOptions(r_tol=1e-3, kappa_tol=1e-5, max_iter=40,
+                         undercut=float("inf"), max_ls=6, refine=1)
+    return mpc_ip, sim_opts, NewtonOptions(r_tol=3e-5, max_iter=5,
+                                           fixed_ip_iters=8)
+
+
+def centroidal_rollout(dev):
+    """Path D's rollout, examples/centroidal_trot.py's configuration:
+    (roll, ref, n_sample, lanes) with ``roll(n_steps)`` the ``mpc_rollout``
+    (direct-mode Newton, configuration mode, warm-start floor 1e-2) of the
+    16 lanes of ``CENTROIDAL_OFFSETS``."""
+    model, env = centroidal_quadruped, flat_3d_lc
+    dims = dims_of(model, env)
+    dtype = torch.float32
+    n_sample, h_mpc, kappa = 5, 10, 2.0e-4
+    ref = from_gait(model, env, load_gait("centroidal_quadruped",
+                                          "inplace_trot_v2"),
+                    update_friction=True, dtype=dtype, device=dev)
+    # flat_trot.jl:38-42, diagonal form of relative_state_cost
+    v_w = 1e-3 * np.concatenate([np.ones(3), 1e3 * np.ones(3), np.ones(12)])
+    q_body = np.array([1e-2, 1e-2, 1.0]) + 4.0 * np.array([0.2, 0.2, 1.0])
+    q_w = np.concatenate([q_body, 0.3 * np.ones(3),
+                          np.tile([0.2, 0.2, 1.0], 4)])
+    obj = tracking_velocity_objective(dims, h_mpc, q=q_w, v=v_w,
+                                      u=3e-3 * np.ones(dims.nu), dtype=dtype,
+                                      device=dev)
+    mpc_ip, sim_opts, n_opts = centroidal_options(kappa)
+    q1, v1 = initial_conditions(ref)
+    with np.load(CENTROIDAL_OFFSETS) as f:
+        offsets = torch.as_tensor(f["offsets"], dtype=dtype, device=dev)
+    q1s = q1[None, :] + offsets
+    v1s = v1.expand_as(q1s).contiguous()
+
+    def roll(n_steps):
+        return mpc_rollout(model, env, ref, obj, n_steps, h_mpc, n_sample,
+                           kappa, CONFIGURATION, q1s, v1s, n_opts=n_opts,
+                           ip_opts=mpc_ip, sim_opts=sim_opts,
+                           warm_start_floor=1e-2)
+
+    return roll, ref, n_sample, q1s.shape[0]
+
+
+def centroidal_path(dev, tag):
+    """Path D: ``centroidal_rollout`` for 50 steps with its health checks;
+    returns the launches."""
+    roll, ref, n_sample, lanes = centroidal_rollout(dev)
+    steps = 50
+    t0 = time.time()
+    roll(2 * n_sample)
+    torch.cuda.synchronize()
+    print(f"path D: warm-up (2 periods) {time.time() - t0:.2f} s {tag}",
+          flush=True)
+
+    res, launches, wall = counted(lambda: roll(steps))
+    check_outputs(res)
+    assert launches >= steps // n_sample, launches
+    ok = res.sim_converged.all(dim=1)
+    errs = [float(e) for e in tracking_errors(
+        ref, res.q[0], res.u[0], res.gamma[0], res.b[0], n_sample)]
+    low = res.q[:, :, 2].amin(dim=1)
+    ref_low = float(ref.q[:, 2].min())
+    print(f"path D (centroidal_quadruped, mpc_rollout direct): {lanes} "
+          f"lanes x {steps} steps in {wall:.2f} s = "
+          f"{lanes * steps / wall:.1f} lane-steps/s {tag}", flush=True)
+    print(f"path D: lanes that converged every step {int(ok.sum())}/{lanes} "
+          f"(JAX: {CENTROIDAL_JAX_OK}/{lanes}), nominal q/u/gamma/b errors "
+          f"{errs}, lowest body height nominal {float(low[0]):.4f} / all "
+          f"lanes {float(low.min()):.4f} (reference {ref_low:.4f}), mean "
+          f"Newton iterations {float(res.newton_iterations.float().mean()):.3f}"
+          f", largest final Newton residual {float(res.mpc_r_norm.max()):.4g}"
+          f", mean sim iterations "
+          f"{float(res.sim_iterations.float().mean()):.3f}, knot_ip launches "
+          f"{launches} {tag}", flush=True)
+    assert bool(ok[0]), "nominal lane sim failed"
+    assert errs[0] < 0.05, errs
+    assert float(low[0]) > 0.5 * ref_low, (float(low[0]), ref_low)
+    assert int(ok.sum()) >= CENTROIDAL_JAX_OK - 1, ok.tolist()
+    got, span_wall = spanned(lambda: roll(2 * n_sample))
+    print_spans("path D", f"{lanes} lanes x {2 * n_sample} steps", got,
+                span_wall, tag)
+    return launches
+
+
 def main():
     # ---- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -472,6 +601,7 @@ def main():
     torch.set_float32_matmul_precision("highest")
     tag = f"[{name_power}]"
     dev = torch.device("cuda")
+    t_start = time.time()
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.time()
@@ -521,36 +651,54 @@ def main():
         raise AssertionError("a model without an instantiation did not raise")
     assert knot_ip.launches == before
 
-    # ---- 5-8. the three paths, each with its spans ---------------------------
+    # ---- 5. the centroidal quadruped's, a block a problem ---------------------
+    c_opts = centroidal_options(2.0e-4)[0]
+    err_c, times_c = kernel_phase(
+        "centroidal_quadruped", centroidal_quadruped,
+        load_gait("centroidal_quadruped", "inplace_trot_v2"), 2.0e-4, c_opts,
+        8, shapes=[(16, 7, 10), (16, 1, 10), (1, 1, 3), (64, 7, 10)],
+        shares=CENTROIDAL_SHARES,
+        timed=[(16, 1, 10), (16, 7, 10), (64, 7, 10)], tag=tag,
+        update_friction=True, env=flat_3d_lc)
+
+    # ---- 6-10. the four paths, each with its spans ---------------------------
     launches = {
         "A": quadruped_path("path A", cfg, 50, dev, tag),
         "B": hopper_path(dev, tag),
         "C": quadruped_path("path C", HotPathConfig(newton_mode="direct"),
-                            25, dev, tag)}
+                            25, dev, tag),
+        "D": centroidal_path(dev, tag)}
 
     bounds = [{"model": model, "n": n, "knots": k, "ms": t[0],
                "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
                "share": t[2] / t[0]}
               for model, times in (("quadruped", times_q),
-                                   ("hopper_2d", times_h))
+                                   ("hopper_2d", times_h),
+                                   ("centroidal_quadruped", times_c))
               for (n, k), t in times.items()]
     print(json.dumps({"knot_ip_bound": bounds,
                       "peak_flops": knot_mod.PEAK_FLOPS,
                       "peak_bytes_per_s": knot_mod.PEAK_BYTES,
                       "card": name_power}))
     main_q, main_h = times_q[(1008, stages)], times_h[(1120, 10)]
+    main_c = times_c[(1120, 10)]
     print(json.dumps({"kernels": [{
         "name": "knot_ip", "route": "cuda",
         "source": "contactimplicitmpc_tpu_torch/csrc/knot_ip.cu",
         "replaces": "contactimplicitmpc_tpu/ops/pallas_ip.py:310",
         "launches": sum(launches.values()),
-        "max_abs_err": max(err_q, err_h),
+        "max_abs_err": max(err_q, err_h, err_c),
         "ms": main_q[0], "plain_ms": main_q[1], "bound_ms": main_q[2],
         "bound_by": main_q[3], "library_ms": None,
         "launches_by_path": launches,
         "hopper_n": 1120, "hopper_ms": main_h[0],
         "hopper_plain_ms": main_h[1], "hopper_bound_ms": main_h[2],
-        "hopper_bound_by": main_h[3]}]}))
+        "hopper_bound_by": main_h[3],
+        "centroidal_n": 1120, "centroidal_ms": main_c[0],
+        "centroidal_plain_ms": main_c[1], "centroidal_bound_ms": main_c[2],
+        "centroidal_bound_by": main_c[3]}]}))
+    print(f"chip_smoke: every phase after the device check in "
+          f"{time.time() - t_start:.1f} s {tag}", flush=True)
     print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

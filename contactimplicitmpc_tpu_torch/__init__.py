@@ -20,8 +20,9 @@ _torch.set_float32_matmul_precision("highest")
 
 from .device import default_device  # noqa: E402
 from .dims import Dims  # noqa: E402
-from .env import (Environment, environment_2d_flat, flat_2d_lc,  # noqa: E402
-                  slope1_2d_lc)
+from .env import (Environment, environment_2d_flat,  # noqa: E402
+                  environment_3d, environment_3d_flat, flat_2d_lc,
+                  flat_3d_lc, slope1_2d_lc)
 from .models.base import Model, dims_of, dynamics  # noqa: E402
 from .sim.interior_point import (IPOptions, IPResult, ip_solve,  # noqa: E402
                                  z_initialize, z_warmstart)

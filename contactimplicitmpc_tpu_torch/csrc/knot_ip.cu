@@ -63,6 +63,13 @@
 //   takes any dimensions that meet struct Lay's assertions (NY a multiple of
 //   4 and at most 16, NX <= NY, at most 32 equality rows, at most 34
 //   columns of theta); lanes past NY, 2 NY, NE, NV or NT idle.
+// - Past those assertions (the 3D models: the centroidal quadruped's knot
+//   has 42 equality rows, a 24 x 24 Schur complement and 53 columns of
+//   theta), a second template, knot_ip_wide_kernel, gives a problem a block
+//   of 2 to 4 warps; its design is set out where it begins, and its models
+//   are listed in KNOT_IP_WIDE_MODELS. At the centroidal dimensions (8
+//   iterations, 1 refinement pass) a problem needs ~1.44 Mflop, 3.0x the
+//   quadruped's: the bound is ~0.024 ms at N = 1120.
 // These reorderings stay inside the float32 spread of two correct solves:
 // after 1 and 3 iterations every problem agrees with the plain version to
 // ~1e-5 in z (chip_smoke.py and tests/test_torch_cuda.py hold 1e-4).
@@ -740,6 +747,569 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) knot_ip_kernel(Params p) {
   }
 }
 
+// ---- problems past one warp: one block a problem ---------------------------
+//
+// The centroidal quadruped's knot (nx 18, ny 24, ntheta 53; 42 equality
+// rows, 66 variables) breaks every assertion of struct Lay: its two
+// right-hand sides do not fit the two halves of a warp, nor its rows and
+// columns a lane each. knot_ip_wide_kernel gives a problem a block of
+// WLay::NTHR threads (2 to 4 warps) instead, and keeps the arithmetic of the
+// plain version step by step:
+// - the knot's packed block (WLay, laid out by knot_pack_wide_kernel; rows
+//   padded to an odd stride, so that threads reading a row each do not
+//   share a bank) and the problem's state in shared memory, past 48 KB by
+//   the opt-in of dynamic shared memory;
+// - every product is a loop over (row, right-hand side) elements, one
+//   accumulator a sum, the terms in the plain version's order;
+// - the [S | I] tableau inverted by Gauss-Jordan, a thread a column held in
+//   registers, one reciprocal and one barrier a pivot, the pivot column
+//   passed through shared memory;
+// - the corrector and centering solves as two right-hand sides of one
+//   Schur solve, and the sensitivities as ntheta right-hand sides of the
+//   same solve, read from rtheta0 in place;
+// - the line search as in knot_ip_kernel: one thread a candidate, in the
+//   first warp, on the affine equality rows;
+// - reductions over the block propagate NaN; `finite` is a barrier's AND.
+
+__host__ __device__ constexpr int odd(int n) { return n | 1; }
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+template <int NX, int NY, int NT, int NC>
+struct WLay {
+  static constexpr int NE = NX + NY, NZ = NX + 2 * NY;
+  static constexpr int SZ = odd(NZ), SX = odd(NX), SY = odd(NY);
+  // a thread for each tableau column, sensitivity column and equality row
+  static constexpr int NTHR =
+      32 * cmax(2, (cmax(cmax(2 * NY, NT), NE) + 31) / 32);
+  static constexpr int NW = NTHR / 32;
+  static_assert(NTHR <= 128, "2 to 4 warps a problem");
+  // one knot's packed constants, in floats
+  static constexpr int kRza = 0,                // rz0's equality rows, NE x SZ
+      kDxi = kRza + NE * SZ,                    // Dx^-1, NX x SX
+      kDy1 = kDxi + NX * SX,                    // NX x SY
+      kCai = kDy1 + NX * SY,                    // Rx Dx^-1, NY x SX
+      kSb = kCai + NY * SX,                     // Ry1 - Cai Dy1, NY x SY
+      kRy1d = kSb + NY * SY,                    // diag Ry1
+      kCaibd = kRy1d + NY,                      // diag Cai Dy1
+      kRy2 = kCaibd + NY,                       // diag Ry2
+      kZ0 = kRy2 + NY,                          // NZ
+      kR0 = kZ0 + NZ,                           // equality rows of r0, NE
+      kTh0 = kR0 + NE,                          // NT
+      kRt0 = kTh0 + NT,                         // rtheta0, NZ x NT
+      kPack = pad4(kRt0 + NZ * NT);
+  // a problem's state kept through the solve
+  static constexpr int SI = odd(NY);           // S^-1 row stride
+  static constexpr int sZ = 0, sZz = sZ + NZ, sR = sZz + NZ,
+      sY1r = sR + NZ, sY2r = sY1r + NY, sQ = sY2r + NY, sTh = sQ + NY,
+      sSi = sTh + NT,                           // S^-1, NY x SI
+      sPiv = sSi + NY * SI,                     // pivot columns, 2 x NY
+      sRed = sPiv + 2 * NY,                     // two slots a warp
+      sPick = sRed + 2 * NW,                    // the line search's pick
+      kKeep = pad4(sPick + 2);
+  // then either the iterations' vectors (right-hand sides contiguous)
+  static constexpr int iDaff = 0, iRhs = iDaff + NZ, iD = iRhs + 2 * NZ,
+      iRes = iD + 2 * NZ, iJd = iRes + 2 * NZ, iT0 = iJd + 2 * NE,
+      iT1 = iT0 + 2 * cmax(NX, NY), kIter = iT1 + 2 * NY;
+  // or the sensitivity solve's columns, CH at a time
+  static constexpr int CH = (NT + 1) / 2;
+  static constexpr int cRes = 0, cD = cRes + CH * NZ, cT0 = cD + CH * NZ,
+      cT1 = cT0 + CH * cmax(NX, NY), kSens = cT1 + CH * NY;
+  static constexpr int kState = kKeep + cmax(kIter, kSens);
+  static constexpr int kBytes = 4 * (kPack + kState);
+  static_assert(kBytes <= 227 * 1024, "a problem must fit an SM's shared memory");
+  static constexpr int PER = (NZ + NTHR - 1) / NTHR;  // variables a thread
+};
+
+struct OpMax {
+  __device__ float operator()(float a, float b) const { return pmax(a, b); }
+};
+struct OpMin {
+  __device__ float operator()(float a, float b) const { return pmin(a, b); }
+};
+struct OpSum {
+  __device__ float operator()(float a, float b) const { return a + b; }
+};
+
+template <int NX, int NY, int NT, int NC>
+struct WSolver {
+  using L = WLay<NX, NY, NT, NC>;
+  static constexpr int NE = L::NE, NZ = L::NZ, NTHR = L::NTHR;
+
+  const float* pk;  // the knot's packed constants, shared memory
+  float* s;         // the problem's kept state, shared memory
+  int tid;
+  float gamma_reg;
+
+  // (a, b) each combined over the block by op; every thread gets both
+  template <class Op>
+  __device__ __forceinline__ void reduce2(float& a, float& b, Op op) const {
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      a = op(a, __shfl_xor_sync(kFull, a, o));
+      b = op(b, __shfl_xor_sync(kFull, b, o));
+    }
+    if (tid % 32 == 0) {
+      s[L::sRed + 2 * (tid / 32)] = a;
+      s[L::sRed + 2 * (tid / 32) + 1] = b;
+    }
+    __syncthreads();
+    a = s[L::sRed];
+    b = s[L::sRed + 1];
+#pragma unroll
+    for (int w = 1; w < L::NW; ++w) {
+      a = op(a, s[L::sRed + 2 * w]);
+      b = op(b, s[L::sRed + 2 * w + 1]);
+    }
+    __syncthreads();
+  }
+  template <class Op>
+  __device__ __forceinline__ float reduce(float v, Op op) const {
+    float unused = 0.0f;
+    reduce2(v, unused, op);
+    return v;
+  }
+
+  // Regularized Schur factorization at z: y1r, y2r, Ry2 / y1r and S^-1
+  // with S = Ry1 - diag(Ry2 y2r / y1r) - Rx Dx^-1 Dy1, by Gauss-Jordan on
+  // [S | I] held by columns: thread j < 2 NY keeps column j in registers,
+  // the pivot column goes through shared memory (two buffers, so that one
+  // barrier a pivot separates every write from the reads before it).
+  __device__ void factor(float kvio) const {
+    const float reg = gamma_reg * kvio;
+    const float* z = s + L::sZ;
+    float* y1r = s + L::sY1r;
+    float* y2r = s + L::sY2r;
+    if (tid < NY) {
+      const float y1 = pmax(z[NX + tid], reg), y2 = pmax(z[NE + tid], reg);
+      y1r[tid] = y1;
+      y2r[tid] = y2;
+      s[L::sQ + tid] = pk[L::kRy2 + tid] / y1;
+    }
+    __syncthreads();
+    const int j = tid;
+    float t[NY];
+#pragma unroll
+    for (int i = 0; i < NY; ++i) {
+      float v = 0.0f;
+      if (j < NY)
+        v = i == j ? pk[L::kRy1d + i] - pk[L::kRy2 + i] * y2r[i] / y1r[i] -
+                         pk[L::kCaibd + i]
+                   : pk[L::kSb + i * L::SY + j];
+      else if (j - NY == i)
+        v = 1.0f;
+      t[i] = v;
+    }
+#pragma unroll
+    for (int k = 0; k < NY; ++k) {
+      float* pc = s + L::sPiv + (k & 1) * NY;
+      if (j == k) {
+#pragma unroll
+        for (int i = 0; i < NY; ++i) pc[i] = t[i];
+      }
+      __syncthreads();
+      float piv = pc[k];
+      if (fabsf(piv) < FLT_MIN) piv = piv >= 0.0f ? FLT_MIN : -FLT_MIN;
+      const float row = t[k] * (1.0f / piv);  // one reciprocal: see gj_columns
+#pragma unroll
+      for (int i = 0; i < NY; ++i)
+        if (i != k) t[i] = t[i] - pc[i] * row;
+      t[k] = row;
+    }
+    if (j >= NY && j < 2 * NY) {
+#pragma unroll
+      for (int i = 0; i < NY; ++i) s[L::sSi + i * L::SI + j - NY] = t[i];
+    }
+    __syncthreads();
+  }
+
+  // Eliminated solve of the regularized system (RZLin solve,
+  // linearized_solver.jl:424-444) for nr right-hand sides: entry (c, l) of
+  // the right-hand sides is sgn * b[c * bc + l * bl]; solution c is
+  // d[c * NZ, +NZ), replaced or added to. t0 holds nr * max(NX, NY)
+  // floats, t1 nr * NY.
+  __device__ void schur(const float* b, int bc, int bl, float sgn, float* d,
+                        float* t0, float* t1, int nr, bool add) const {
+    const float* q = s + L::sQ;
+    const float* y1r = s + L::sY1r;
+    const float* y2r = s + L::sY2r;
+    const float* si = s + L::sSi;
+    for (int e = tid; e < nr * NY; e += NTHR) {  // Rx Dx^-1 rdyn - v
+      const int c = e / NY, i = e % NY;
+      const float* bv = b + c * bc;
+      const float* row = pk + L::kCai + i * L::SX;
+      float acc = 0.0f;
+      for (int l = 0; l < NX; ++l) acc = fmaf(row[l], sgn * bv[l * bl], acc);
+      const float v = sgn * bv[(NX + i) * bl] - q[i] * (sgn * bv[(NE + i) * bl]);
+      t0[c * NY + i] = acc - v;
+    }
+    __syncthreads();
+    for (int e = tid; e < nr * NY; e += NTHR) {  // temp = S^-1 t0
+      const int c = e / NY, i = e % NY;
+      const float* row = si + i * L::SI;
+      const float* tv = t0 + c * NY;
+      float acc = 0.0f;
+      for (int l = 0; l < NY; ++l) acc = fmaf(row[l], tv[l], acc);
+      t1[c * NY + i] = acc;
+    }
+    __syncthreads();
+    for (int e = tid; e < nr * NX; e += NTHR) {  // rdyn + Dy1 temp, into t0
+      const int c = e / NX, i = e % NX;
+      const float* row = pk + L::kDy1 + i * L::SY;
+      const float* tv = t1 + c * NY;
+      float acc = 0.0f;
+      for (int m = 0; m < NY; ++m) acc = fmaf(row[m], tv[m], acc);
+      t0[c * NX + i] = sgn * b[c * bc + i * bl] + acc;
+    }
+    for (int e = tid; e < nr * NY; e += NTHR) {  // the y parts
+      const int c = e / NY, i = e % NY;
+      const float temp = t1[c * NY + i];
+      const float y2 = (sgn * b[c * bc + (NE + i) * bl] + y2r[i] * temp) / y1r[i];
+      float* dv = d + c * NZ;
+      dv[NX + i] = add ? dv[NX + i] + -temp : -temp;
+      dv[NE + i] = add ? dv[NE + i] + y2 : y2;
+    }
+    __syncthreads();
+    for (int e = tid; e < nr * NX; e += NTHR) {  // x = Dx^-1 (...)
+      const int c = e / NX, i = e % NX;
+      const float* row = pk + L::kDxi + i * L::SX;
+      const float* tv = t0 + c * NX;
+      float acc = 0.0f;
+      for (int l = 0; l < NX; ++l) acc = fmaf(row[l], tv[l], acc);
+      float* dv = d + c * NZ;
+      dv[i] = add ? dv[i] + acc : acc;
+    }
+    __syncthreads();
+  }
+
+  // The Schur solve plus `refine` passes against the factorization's own
+  // (regularized) operator; res holds nr * NZ floats.
+  __device__ void solve(const float* b, int bc, int bl, float sgn, float* d,
+                        float* res, float* t0, float* t1, int nr,
+                        int refine) const {
+    schur(b, bc, bl, sgn, d, t0, t1, nr, false);
+    const float* y1r = s + L::sY1r;
+    const float* y2r = s + L::sY2r;
+    for (int pass = 0; pass < refine; ++pass) {
+      for (int e = tid; e < nr * NZ; e += NTHR) {
+        const int c = e / NZ, j = e % NZ;
+        const float* dv = d + c * NZ;
+        float v;
+        if (j < NE) {
+          const float* row = pk + L::kRza + j * L::SZ;
+          v = 0.0f;
+          for (int l = 0; l < NZ; ++l) v = fmaf(row[l], dv[l], v);
+        } else {
+          const int i = j - NE;
+          v = y1r[i] * dv[NE + i] + y2r[i] * dv[NX + i];
+        }
+        res[c * NZ + j] = sgn * b[c * bc + j * bl] - v;
+      }
+      __syncthreads();
+      schur(res, NZ, 1, 1.0f, d, t0, t1, nr, true);
+    }
+  }
+};
+
+template <int NX, int NY, int NT, int NC>
+__global__ void __launch_bounds__(WLay<NX, NY, NT, NC>::NTHR)
+    knot_ip_wide_kernel(Params p) {
+  using L = WLay<NX, NY, NT, NC>;
+  constexpr int NE = L::NE, NZ = L::NZ, NTHR = L::NTHR, PER = L::PER;
+  extern __shared__ __align__(16) float smem[];
+  const int n = blockIdx.x, kn = n % p.k, tid = threadIdx.x;
+
+  // ---- the knot's block, asynchronously; meanwhile this problem's data --
+  const float* gpack = p.pack + (size_t)kn * L::kPack;
+  for (int e = tid; e < L::kPack / 4; e += NTHR)
+    cp_async16(smem + 4 * e, gpack + 4 * e);
+  const float* pk = smem;
+  float* s = smem + L::kPack;
+  float* u = s + L::kKeep;
+  for (int e = tid; e < L::kState; e += NTHR) s[e] = 0.0f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  WSolver<NX, NY, NT, NC> sv{pk, s, tid, p.gamma_reg};
+  float* z = s + L::sZ;
+  float* zz = s + L::sZz;
+  float* r = s + L::sR;
+  float* th = s + L::sTh;
+  for (int j = tid; j < NT; j += NTHR)
+    th[j] = p.theta[(size_t)n * NT + j] - pk[L::kTh0 + j];
+  for (int j = tid; j < NZ; j += NTHR) {
+    const float v = j < NX ? p.q2_init[(size_t)n * NX + j] : 1.0f;
+    z[j] = v;
+    zz[j] = v - pk[L::kZ0 + j];
+  }
+  __syncthreads();
+  float rb = 0.0f;  // threads < NE: r0 + rtheta0 (theta - theta0) + alt
+  if (tid < NE) {
+    const float* rt = pk + L::kRt0 + tid * NT;
+    float acc = 0.0f;
+    for (int j = 0; j < NT; ++j) acc = fmaf(rt[j], th[j], acc);
+    const float alt =
+        tid >= NX && tid < NX + NC ? p.alt[(size_t)n * NC + tid - NX] : 0.0f;
+    rb = pk[L::kR0 + tid] + acc + alt;
+  }
+
+  float rvio = 0.0f, kvio = 0.0f;
+  // r(z, 0) into r, and the violations
+  auto residual = [&]() {
+    float req = 0.0f, rbl = 0.0f;
+    if (tid < NE) {
+      const float* row = pk + L::kRza + tid * L::SZ;
+      float acc = 0.0f;
+      for (int j = 0; j < NZ; ++j) acc = fmaf(row[j], zz[j], acc);
+      req = rb + acc;
+      r[tid] = req;
+    }
+    if (tid < NY) {
+      rbl = z[NX + tid] * z[NE + tid];
+      r[NE + tid] = rbl;
+    }
+    rvio = tid < NE ? fabsf(req) : 0.0f;
+    kvio = tid < NY ? fabsf(rbl) : 0.0f;
+    sv.reduce2(rvio, kvio, OpMax());
+  };
+
+  float* daff = u + L::iDaff;
+  float* rhs = u + L::iRhs;
+  float* d2 = u + L::iD;
+  float* jd = u + L::iJd;
+  const int n_ls = p.max_ls + 1;
+  bool done = false;
+  for (int it = 0; it < p.iters; ++it) {
+    residual();
+    const bool done_now = (rvio <= p.r_tol) && (kvio <= p.kappa_tol);
+    sv.factor(kvio);
+    sv.solve(r, NZ, 1, 1.0f, daff, u + L::iRes, u + L::iT0, u + L::iT1, 1,
+             p.refine);
+
+    // affine step length, centering parameter
+    float m = FLT_MAX, yy = 0.0f, yya = 0.0f;
+    if (tid < NY) {
+      const float y1 = z[NX + tid], y2 = z[NE + tid];
+      const float a1 = daff[NX + tid], a2 = daff[NE + tid];
+      m = pmin(step_ratio(1.0f, y1, a1), step_ratio(1.0f, y2, a2));
+    }
+    const float a_aff = pmin(1.0f, sv.reduce(m, OpMin()));
+    if (tid < NY) {
+      const float y1 = z[NX + tid], y2 = z[NE + tid];
+      yy = y1 * y2;
+      yya = (y1 - a_aff * daff[NX + tid]) * (y2 - a_aff * daff[NE + tid]);
+    }
+    sv.reduce2(yy, yya, OpSum());
+    const float mu = yy / NY;
+    const float mu_aff = yya / NY;
+    const float ratio = mu_aff / pmax(mu, FLT_MIN);
+    const float sig = pmin(pmax(ratio, 0.0f), 1.0f);
+    const float kappa_t = pmax(sig * sig * sig * mu, p.kappa_floor);
+
+    // corrector (first) and centering (second) right-hand sides
+    float m0 = 0.0f;
+    for (int j = tid; j < NZ; j += NTHR) {
+      const float rc = j < NE ? r[j] : r[j] - kappa_t;
+      rhs[NZ + j] = rc;
+      rhs[j] = j < NE ? rc : rc + daff[j - NY] * daff[j];
+      m0 = fmaf(rc, rc, m0);
+    }
+    const float merit0 = sv.reduce(m0, OpSum());  // its barriers publish rhs
+    sv.solve(rhs, NZ, 1, 1.0f, d2, u + L::iRes, u + L::iT0, u + L::iT1, 2,
+             p.refine);
+
+    // fraction-to-boundary step of each direction
+    const float vmax = pmax(rvio, kvio);
+    const float tau = pmin(pmax(1.0f - vmax * vmax, p.tau_min), p.tau_max);
+    float mc = FLT_MAX, me = FLT_MAX;
+    if (tid < NY) {
+      const float y1 = z[NX + tid], y2 = z[NE + tid];
+      mc = pmin(step_ratio(tau, y1, d2[NX + tid]),
+                step_ratio(tau, y2, d2[NE + tid]));
+      me = pmin(step_ratio(tau, y1, d2[NZ + NX + tid]),
+                step_ratio(tau, y2, d2[NZ + NE + tid]));
+    }
+    sv.reduce2(mc, me, OpMin());
+    const float a_cor = pmin(1.0f, mc);
+    const float a_cen = pmin(1.0f, me);
+
+    // the equality rows of r(z - a d) are r - a Rza d
+    for (int e = tid; e < 2 * NE; e += NTHR) {
+      const int dir = e / NE, row = e % NE;
+      const float* rz = pk + L::kRza + row * L::SZ;
+      const float* dv = d2 + dir * NZ;
+      float acc = 0.0f;
+      for (int j = 0; j < NZ; ++j) acc = fmaf(rz[j], dv[j], acc);
+      jd[e] = acc;
+    }
+    __syncthreads();
+
+    // two-direction backtracking line search in the first warp, thread c on
+    // candidate c: the first passing candidate wins; if none passes, the
+    // first minimum-merit one (NaN counts as the minimum, as jnp.argmin)
+    if (tid < 32) {
+      const bool valid = tid < 2 * n_ls;
+      const int dir = valid ? tid / n_ls : 0;
+      const float a = (dir ? a_cen : a_cor) *
+                      __int_as_float((127 - tid % n_ls) << 23);  // 2^-halvings
+      const float* jv = jd + dir * NE;
+      const float* dv = d2 + dir * NZ;
+      float mer = 0.0f;
+      for (int e = 0; e < NE; ++e) {
+        const float v = r[e] - a * jv[e];
+        mer = fmaf(v, v, mer);
+      }
+      for (int e = 0; e < NY; ++e) {
+        const float v = (z[NX + e] - a * dv[NX + e]) *
+                        (z[NE + e] - a * dv[NE + e]) - kappa_t;
+        mer = fmaf(v, v, mer);
+      }
+      int pick;
+      const unsigned ok =
+          __ballot_sync(kFull, valid && mer < (1.0f - 1.0e-3f * a) * merit0);
+      if (ok) {
+        pick = __ffs(ok) - 1;
+      } else {
+        const unsigned nans = __ballot_sync(kFull, valid && mer != mer);
+        if (nans) {
+          pick = __ffs(nans) - 1;
+        } else {
+          const float best = warp_min(valid ? mer : INFINITY);
+          pick = __ffs(__ballot_sync(kFull, valid && mer == best)) - 1;
+        }
+      }
+      const float a_pick = __shfl_sync(kFull, a, pick);
+      if (tid == 0) {
+        s[L::sPick] = a_pick;
+        s[L::sPick + 1] = static_cast<float>(pick / n_ls);
+      }
+    }
+    __syncthreads();
+    const float a_pick = s[L::sPick];
+    const float* d = d2 + static_cast<int>(s[L::sPick + 1]) * NZ;
+    float zn[PER];
+    bool fin = true;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int j = tid + k * NTHR;
+      zn[k] = j < NZ ? z[j] - a_pick * d[j] : 0.0f;
+      fin = fin && isfinite(zn[k]);
+    }
+    const bool finite = __syncthreads_and(fin);  // every thread has read z
+    // keep the last finite iterate; converged problems freeze
+    if (!(done || done_now || !finite)) {
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int j = tid + k * NTHR;
+        if (j < NZ) {
+          z[j] = zn[k];
+          zz[j] = zn[k] - pk[L::kZ0 + j];
+        }
+      }
+    }
+    done = done || done_now;
+    __syncthreads();
+  }
+
+  // ---- final residual, flags and the sensitivity solve ------------------
+  residual();
+  const bool converged = (rvio <= p.r_tol) && (kvio <= p.kappa_tol);
+  sv.factor(kvio);
+  // columns c0 + c of dz at dzs[c * NZ, +NZ), CH at a time, stored as they
+  // come and zeroed again if any is not finite
+  float* dzs = u + L::cD;
+  float* dz = p.dz_out + (size_t)n * NZ * NT;
+  bool fin = true;
+  for (int c0 = 0; c0 < NT; c0 += L::CH) {
+    const int nr = NT - c0 < L::CH ? NT - c0 : L::CH;
+    sv.solve(pk + L::kRt0 + c0, 1, NT, -1.0f, dzs, u + L::cRes, u + L::cT0,
+             u + L::cT1, nr, p.refine);
+    for (int e = tid; e < NZ * nr; e += NTHR) {
+      const int row = e / nr, c = e % nr;
+      const float v = dzs[c * NZ + row];
+      fin = fin && isfinite(v);
+      dz[row * NT + c0 + c] = v;
+    }
+    __syncthreads();  // the next columns overwrite dzs
+  }
+  const bool dz_bad = !__syncthreads_and(fin);
+  if (dz_bad) {
+    for (int e = tid; e < NZ * NT; e += NTHR) dz[e] = 0.0f;
+  }
+  for (int j = tid; j < NZ; j += NTHR) p.z_out[(size_t)n * NZ + j] = z[j];
+  if (tid == 0) {
+    p.conv_out[n] = (converged && !dz_bad) ? 1 : 0;
+    p.rvio_out[n] = rvio;
+    p.kvio_out[n] = kvio;
+  }
+}
+
+// The per-knot constants of WLay, one block a knot; written straight to the
+// scratch in device memory (a wall's block is past 48 KB), with Dx^-1 and
+// Rx Dx^-1 staged in shared memory.
+template <int NX, int NY, int NT, int NC>
+__global__ void __launch_bounds__(kPackThreads) knot_pack_wide_kernel(Params p) {
+  using L = WLay<NX, NY, NT, NC>;
+  constexpr int NE = L::NE, NZ = L::NZ;
+  __shared__ float tab[NX * 2 * NX];  // [Dx | I] -> [. | Dx^-1]
+  __shared__ float cai[NY * NX];
+  const int kn = blockIdx.x, tid = threadIdx.x;
+  const float* rz = p.rz0 + (size_t)kn * NZ * NZ;
+  float* o = p.pack + (size_t)kn * L::kPack;
+  for (int e = tid; e < L::kPack; e += kPackThreads) o[e] = 0.0f;
+  __syncthreads();
+  for (int e = tid; e < NE * NZ; e += kPackThreads)
+    o[L::kRza + (e / NZ) * L::SZ + e % NZ] = rz[e];
+  for (int e = tid; e < NX * NY; e += kPackThreads)
+    o[L::kDy1 + (e / NY) * L::SY + e % NY] = rz[(e / NY) * NZ + NX + e % NY];
+  for (int i = tid; i < NY; i += kPackThreads) {
+    o[L::kRy1d + i] = rz[(NX + i) * NZ + NX + i];
+    o[L::kRy2 + i] = rz[(NX + i) * NZ + NE + i];
+  }
+  for (int j = tid; j < NZ; j += kPackThreads)
+    o[L::kZ0 + j] = p.z0_lin[(size_t)kn * NZ + j];
+  for (int j = tid; j < NE; j += kPackThreads)
+    o[L::kR0 + j] = p.r0[(size_t)kn * NZ + j];
+  for (int j = tid; j < NT; j += kPackThreads)
+    o[L::kTh0 + j] = p.theta0[(size_t)kn * NT + j];
+  for (int e = tid; e < NZ * NT; e += kPackThreads)
+    o[L::kRt0 + e] = p.rtheta0[(size_t)kn * NZ * NT + e];
+  for (int e = tid; e < NX * 2 * NX; e += kPackThreads) {
+    const int i = e / (2 * NX), j = e % (2 * NX);
+    tab[e] = j < NX ? rz[i * NZ + j] : (j - NX == i ? 1.0f : 0.0f);
+  }
+  __syncthreads();
+  for (int k = 0; k < NX; ++k) {  // Gauss-Jordan, a thread a column
+    float piv = tab[k * 2 * NX + k];
+    if (fabsf(piv) < FLT_MIN) piv = piv >= 0.0f ? FLT_MIN : -FLT_MIN;
+    const float rinv = 1.0f / piv;
+    for (int j = k + 1 + tid; j < 2 * NX; j += kPackThreads) {
+      const float row = tab[k * 2 * NX + j] * rinv;
+      for (int i = 0; i < NX; ++i)
+        if (i != k) tab[i * 2 * NX + j] = tab[i * 2 * NX + j] - tab[i * 2 * NX + k] * row;
+      tab[k * 2 * NX + j] = row;
+    }
+    __syncthreads();
+  }
+  for (int e = tid; e < NX * NX; e += kPackThreads)
+    o[L::kDxi + (e / NX) * L::SX + e % NX] = tab[(e / NX) * 2 * NX + NX + e % NX];
+  for (int e = tid; e < NY * NX; e += kPackThreads) {
+    const int i = e / NX, j = e % NX;
+    float acc = 0.0f;
+    for (int l = 0; l < NX; ++l)
+      acc += rz[(NX + i) * NZ + l] * tab[l * 2 * NX + NX + j];
+    cai[e] = acc;
+    o[L::kCai + i * L::SX + j] = acc;
+  }
+  __syncthreads();
+  for (int e = tid; e < NY * NY; e += kPackThreads) {
+    const int i = e / NY, j = e % NY;
+    float acc = 0.0f;
+    for (int l = 0; l < NX; ++l) acc += cai[i * NX + l] * rz[l * NZ + NX + j];
+    o[L::kSb + i * L::SY + j] = rz[(NX + i) * NZ + NX + j] - acc;
+    if (i == j) o[L::kCaibd + i] = acc;
+  }
+}
+
 template <int NX, int NY, int NT, int NC>
 int launch_pack(const Params& p, cudaStream_t stream) {
   knot_pack_kernel<NX, NY, NT, NC><<<p.k, kPackThreads, 0, stream>>>(p);
@@ -768,11 +1338,40 @@ int launch(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NX, int NY, int NT, int NC>
+int launch_pack_wide(const Params& p, cudaStream_t stream) {
+  knot_pack_wide_kernel<NX, NY, NT, NC><<<p.k, kPackThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NX, int NY, int NT, int NC>
+int launch_wide(const Params& p, cudaStream_t stream) {
+  using L = WLay<NX, NY, NT, NC>;
+  if (p.n % p.k != 0 || p.max_ls < 0 || 2 * (p.max_ls + 1) > 32) return -2;
+  int err = launch_pack_wide<NX, NY, NT, NC>(p, stream);
+  if (err != 0) return err;
+  if (L::kBytes > 48 * 1024) {  // past 48 KB only by opting in
+    err = static_cast<int>(cudaFuncSetAttribute(
+        knot_ip_wide_kernel<NX, NY, NT, NC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes));
+    if (err != 0) return err;
+  }
+  knot_ip_wide_kernel<NX, NY, NT, NC><<<p.n, L::NTHR, L::kBytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The models this build holds, one line each: (nx, ny, ntheta, nc) of the
-// model on its terrain (dims.py). Every entry point below dispatches over it.
+// model on its terrain (dims.py). Every entry point below dispatches over
+// both tables: KNOT_IP_MODELS for problems a warp holds (struct Lay),
+// KNOT_IP_WIDE_MODELS for those past it (struct WLay, a block a problem).
+// WLay also takes hopper_3d's (7, 6, 22, 1) and the centroidal wall's
+// (18, 48, 53, 8).
 #define KNOT_IP_MODELS(X)                                     \
   X(11, 16, 34, 4) /* quadruped on flat_2d_lc */              \
   X(4, 4, 14, 1)   /* hopper_2d on flat_2d_lc */
+#define KNOT_IP_WIDE_MODELS(X)                                \
+  X(18, 24, 53, 4) /* centroidal_quadruped (+ _undamped, _box), \
+                      point_foot_quadruped on flat_3d_lc */
 
 }  // namespace
 
@@ -785,6 +1384,10 @@ extern "C" int knot_ip_pack_floats(int nx, int ny, int nt, int nc) {
 #define KNOT_IP_CASE(NX, NY, NT, NC) \
   if (nx == NX && ny == NY && nt == NT && nc == NC) return Lay<NX, NY, NT, NC>::kPack;
   KNOT_IP_MODELS(KNOT_IP_CASE)
+#undef KNOT_IP_CASE
+#define KNOT_IP_CASE(NX, NY, NT, NC) \
+  if (nx == NX && ny == NY && nt == NT && nc == NC) return WLay<NX, NY, NT, NC>::kPack;
+  KNOT_IP_WIDE_MODELS(KNOT_IP_CASE)
 #undef KNOT_IP_CASE
   return -1;
 }
@@ -803,6 +1406,11 @@ extern "C" int knot_ip_pack_launch(
   if (nx == NX && ny == NY && nt == NT && nc == NC) \
     return launch_pack<NX, NY, NT, NC>(p, s);
   KNOT_IP_MODELS(KNOT_IP_CASE)
+#undef KNOT_IP_CASE
+#define KNOT_IP_CASE(NX, NY, NT, NC)                  \
+  if (nx == NX && ny == NY && nt == NT && nc == NC) \
+    return launch_pack_wide<NX, NY, NT, NC>(p, s);
+  KNOT_IP_WIDE_MODELS(KNOT_IP_CASE)
 #undef KNOT_IP_CASE
   return -1;
 }
@@ -826,6 +1434,11 @@ extern "C" int knot_ip_launch(
   if (nx == NX && ny == NY && nt == NT && nc == NC) \
     return launch<NX, NY, NT, NC>(p, s);
   KNOT_IP_MODELS(KNOT_IP_CASE)
+#undef KNOT_IP_CASE
+#define KNOT_IP_CASE(NX, NY, NT, NC)                  \
+  if (nx == NX && ny == NY && nt == NT && nc == NC) \
+    return launch_wide<NX, NY, NT, NC>(p, s);
+  KNOT_IP_WIDE_MODELS(KNOT_IP_CASE)
 #undef KNOT_IP_CASE
   return -1;
 }

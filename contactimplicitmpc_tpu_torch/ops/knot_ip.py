@@ -14,7 +14,9 @@ so problem ``(..., k)`` uses knot ``k``.
 A call is two kernels on one stream, counted as one launch: a prologue
 that packs each knot's constants (``pack_knots``; its plain version
 ``pack_knots_plain`` and the layout ``pack_layout`` are here), then the
-solve, whose blocks each read one knot's packed block.
+solve, whose blocks each read one knot's packed block. The kernel has two
+templates: a warp a problem where the knot fits a warp, a block a problem
+past it (the 3D models); ``warp_template`` says which one takes a model.
 
 ``work`` counts the operations and bytes of a call, and ``bound_ms`` turns
 them into the kernel's bound on an H100.
@@ -110,19 +112,31 @@ def _pad4(n: int) -> int:
 
 
 class PackLayout(NamedTuple):
-    """One knot's packed block, as ``struct Lay`` of the kernel lays it out
-    (in floats). ``blocks[name]`` is (offset, rows, row stride, columns);
-    what lies past a row's columns is zero. ``slots[j]`` is the padded
-    position of variable (or residual row) ``j``: the ``x`` part is padded
-    to a multiple of 4 so that the ``y1`` and ``y2`` parts start 16-byte
-    aligned."""
+    """One knot's packed block, as the kernel lays it out (in floats):
+    ``struct Lay`` for problems a warp holds, ``struct WLay`` past them
+    (``warp_template``). ``blocks[name]`` is (offset, rows, row stride,
+    columns); what lies past a row's columns is zero. ``slots[j]`` is the
+    padded position of variable (or residual row) ``j``: for ``Lay`` the
+    ``x`` part is padded to a multiple of 4 so that the ``y1`` and ``y2``
+    parts start 16-byte aligned; ``WLay`` pads no slot."""
     blocks: dict
     slots: tuple
     size: int
 
 
+def warp_template(dims: Dims) -> bool:
+    """Whether the kernel takes ``dims`` with one warp a problem (``struct
+    Lay``'s assertions); past them it takes a block a problem (``struct
+    WLay``), with a layout of its own."""
+    nx, ny = dims.nx, dims.ny
+    return (ny % 4 == 0 and 2 * ny <= 32 and nx <= ny and nx + ny <= 32
+            and dims.ntheta <= 34)
+
+
 @functools.lru_cache(maxsize=None)
 def pack_layout(dims: Dims) -> PackLayout:
+    if not warp_template(dims):
+        return _pack_layout_wide(dims)
     nx, ny, nz, nt = dims.nx, dims.ny, dims.nz, dims.ntheta
     ne = nx + ny
     vy1 = _pad4(nx)
@@ -147,6 +161,31 @@ def pack_layout(dims: Dims) -> PackLayout:
         off += rows * stride
     slots = tuple(j if j < nx else j + vy1 - nx for j in range(nz))
     return PackLayout(blocks=blocks, slots=slots, size=off)
+
+
+def _pack_layout_wide(dims: Dims) -> PackLayout:
+    """``struct WLay``'s block: rows at an odd stride, no slot padding, the
+    total rounded up to 16 bytes."""
+    nx, ny, nz, nt = dims.nx, dims.ny, dims.nz, dims.ntheta
+    ne = nx + ny
+    odd = lambda n: n | 1
+    blocks, off = {}, 0
+    for name, rows, stride, cols in (
+            ("rza", ne, odd(nz), nz),   # equality rows of rz0
+            ("dxi", nx, odd(nx), nx),   # Dx⁻¹
+            ("dy1", nx, odd(ny), ny),
+            ("cai", ny, odd(nx), nx),   # Rx Dx⁻¹
+            ("sb", ny, odd(ny), ny),    # Ry1 − Rx Dx⁻¹ Dy1
+            ("ry1d", 1, ny, ny),        # diagonal of Ry1
+            ("caibd", 1, ny, ny),       # diagonal of Rx Dx⁻¹ Dy1
+            ("ry2", 1, ny, ny),         # diagonal of Ry2
+            ("z0", 1, nz, nz),
+            ("r0", 1, ne, ne),          # equality rows of r0
+            ("theta0", 1, nt, nt),
+            ("rtheta0", 1, nz * nt, nz * nt)):
+        blocks[name] = (off, rows, stride, cols)
+        off += rows * stride
+    return PackLayout(blocks=blocks, slots=tuple(range(nz)), size=_pad4(off))
 
 
 def pack_blocks(dims: Dims, pack) -> dict:
@@ -178,7 +217,8 @@ def pack_knots_plain(dims: Dims, z0_lin, theta0, r0, rz0, rtheta0):
                     ("caibd", diag(b.caib)), ("ry2", b.ry2),
                     ("r0", r0[:, :ne]), ("theta0", theta0),
                     ("rtheta0", rtheta0.reshape(k, -1))):
-        views[name][:] = x.reshape(views[name].shape)
+        if name in views:
+            views[name][:] = x.reshape(views[name].shape)
     return pack
 
 

@@ -17,7 +17,7 @@ import torch
 from contactimplicitmpc_tpu_torch.control.linearized import \
     linearize_trajectory
 from contactimplicitmpc_tpu_torch.control.trajectory import from_gait
-from contactimplicitmpc_tpu_torch.env import flat_2d_lc
+from contactimplicitmpc_tpu_torch.env import flat_2d_lc, flat_3d_lc
 from contactimplicitmpc_tpu_torch.hotpath import (HotPathConfig,
                                                   conf_initial_states,
                                                   make_quadruped_rollout)
@@ -25,18 +25,34 @@ from contactimplicitmpc_tpu_torch.models.base import dims_of
 from contactimplicitmpc_tpu_torch.control.implicit_dynamics import \
     default_mpc_ip_options
 from contactimplicitmpc_tpu_torch.dims import Dims
+from contactimplicitmpc_tpu_torch.models.centroidal_quadruped import \
+    centroidal_quadruped
 from contactimplicitmpc_tpu_torch.models.hopper_2d import hopper_2d
 from contactimplicitmpc_tpu_torch.models.quadruped import quadruped
 from contactimplicitmpc_tpu_torch.ops import knot_ip as knot_mod
 from contactimplicitmpc_tpu_torch.ops.fixed_ip import linearized_ip_fixed
-from contactimplicitmpc_tpu_torch.ops.knot_ip import knot_ip
+from contactimplicitmpc_tpu_torch.ops.knot_ip import knot_ip, warp_template
+from contactimplicitmpc_tpu_torch.sim.interior_point import IPOptions
 from contactimplicitmpc_tpu_torch.utils.gaits import load_gait
 
-torch.set_num_threads(2)
 CFG = HotPathConfig()
 OPTS = CFG.mpc_ip_options()
 DIMS = dims_of(quadruped, flat_2d_lc)
 STAGES, TRIALS = CFG.h_mpc - 1, CFG.newton_max_ls + 1
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every test here, and the module's fixtures, run PyTorch on one
+    thread: a batched LAPACK factorization (the pivoted-LU KKT backend) does
+    not return on some CPU builds under a thread count between 2 and the
+    core count, and one thread a test process keeps the processes from
+    competing for the cores. Set here, not at import: a test process
+    imports every test file, and the last import would win."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture
@@ -398,3 +414,102 @@ def test_general_path_runs_through_kernel(card, newton_mode):
         if x.is_floating_point():
             assert torch.isfinite(x).all(), name
     assert bool(pt.status(traj).all())
+
+
+# ---- the wide template, a block a problem: the centroidal quadruped --------
+
+def centroidal_problems(device, lanes, trials, stages):
+    """(lanes, trials, stages) problems over the first ``stages`` knots of
+    the centroidal quadruped's in-place trot on flat_3d_lc (nx 18, ny 24,
+    nθ 53, nc 4), float32, θ perturbed as ``knot_problems`` perturbs the
+    quadruped's; with examples/centroidal_trot.py's float32 knot options."""
+    kappa = 2.0e-4
+    dims = dims_of(centroidal_quadruped, flat_3d_lc)
+    opts = IPOptions(r_tol=1e-4, kappa_tol=kappa, max_iter=30, undercut=5.0,
+                     gamma_reg=0.1, diff_sol=True, max_ls=3, refine=1)
+    ref = from_gait(centroidal_quadruped, flat_3d_lc,
+                    load_gait("centroidal_quadruped", "inplace_trot_v2"),
+                    update_friction=True, dtype=torch.float32, device=device)
+    lin = linearize_trajectory(centroidal_quadruped, flat_3d_lc, ref, kappa)
+    shape = (lanes, trials, stages)
+    noise = np.random.default_rng(0).standard_normal(shape + (dims.ntheta,))
+    theta = ref.theta[:stages] + 0.003 * torch.as_tensor(
+        noise, dtype=torch.float32, device=device)
+    q2 = ref.q[2:stages + 2].expand(shape + (dims.nq,)).contiguous()
+    alt = torch.zeros(shape + (dims.nc,), dtype=torch.float32, device=device)
+    return dims, opts, ([x[:stages].contiguous() for x in lin]
+                        + [alt, theta.contiguous(), q2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,trials", [(16, 1), (16, 7)])
+@pytest.mark.parametrize("iters", [1, 3])
+def test_centroidal_kernel_matches_plain_early(card, lanes, trials, iters):
+    """The wide template (``struct WLay``: a block of threads a problem, the
+    knot's block and the problem's state in shared memory past 48 KB) at
+    the centroidal quadruped's dimensions, N = 160 and 1120 over K = 10
+    knots, after 1 and 3 iterations: every problem to 1e-4 in z and 1e-3 of
+    its scale in dz, the same converged flags."""
+    dims, opts, problems = centroidal_problems(card, lanes, trials, 10)
+    assert not warp_template(dims)
+    before = knot_ip.launches
+    out = knot_ip(dims, *problems, opts, iters)
+    want = linearized_ip_fixed(dims, *problems, opts, iters)
+    torch.cuda.synchronize()
+    assert knot_ip.launches == before + 1
+    assert torch.isfinite(out.z).all() and torch.isfinite(out.dz).all()
+    assert float((out.z - want.z).abs().max()) < 1e-4
+    assert float(dz_rel(out, want).max()) < 1e-3
+    assert bool((out.converged == want.converged).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poison", [float("nan"), 1e30])
+def test_centroidal_poisoned_theta_stays_in_its_problem(card, poison):
+    """The wide template with one problem's θ poisoned: that problem keeps
+    a finite z and is flagged unconverged, as in the plain version (for NaN
+    both keep the initial point), and every other problem comes out bit for
+    bit as without the poison."""
+    dims, opts, problems = centroidal_problems(card, 4, 1, 10)
+    clean = knot_ip(dims, *problems, opts, 8)
+    theta = problems[6].clone()
+    theta[1, 0, 4, 7] = poison
+    bad = problems[:6] + [theta, problems[7]]
+    out = knot_ip(dims, *bad, opts, 8)
+    want = linearized_ip_fixed(dims, *bad, opts, 8)
+    torch.cuda.synchronize()
+    hit = torch.zeros_like(out.converged)
+    hit[1, 0, 4] = True
+    assert torch.isfinite(out.z).all() and torch.isfinite(out.dz).all()
+    assert not bool(out.converged[hit]) and not bool(want.converged[hit])
+    if poison != poison:
+        z_init = torch.cat([problems[7][hit],
+                            torch.ones((1, dims.nz - dims.nq), device=card)],
+                           1)
+        assert torch.equal(out.z[hit], z_init)
+        assert torch.equal(want.z[hit], z_init)
+    assert bool(((want.dz[hit] == 0) <= (out.dz[hit] == 0)).all())
+    for a, b in zip(out, clean):
+        assert torch.equal(a[~hit], b[~hit])
+
+
+@pytest.mark.cuda
+def test_centroidal_prologue_packs_knot_constants(card):
+    """The wide template's prologue against the plain packing of the same
+    constants at its own layout: copies exact, the products and the
+    inverse to 1e-5 of each block's largest entry, zeros elsewhere."""
+    dims, _, problems = centroidal_problems(card, 1, 1, 10)
+    knots = problems[:5]
+    got = knot_mod.pack_knots(dims, *knots)
+    want = knot_mod.pack_knots_plain(dims, *knots)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (10, knot_mod.pack_layout(dims).size)
+    exact = {"rza", "dy1", "ry1d", "ry2", "z0", "r0", "theta0", "rtheta0"}
+    blocks = knot_mod.pack_blocks(dims, want)
+    for name, a in knot_mod.pack_blocks(dims, got).items():
+        b = blocks[name]
+        if name in exact:
+            assert torch.equal(a, b), name
+        else:
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
+    assert bool((got[want == 0] == 0).all())

@@ -18,12 +18,28 @@ from contactimplicitmpc_tpu_torch.hotpath import (HotPathConfig,
                                                   make_quadruped_rollout,
                                                   quadruped_tracking_weights)
 from contactimplicitmpc_tpu_torch.models.base import dims_of
+from contactimplicitmpc_tpu_torch.models.centroidal_quadruped import \
+    relative_state_cost
 from contactimplicitmpc_tpu_torch.models.quadruped import quadruped
 from contactimplicitmpc_tpu_torch.utils.gaits import load_gait
 
 DIMS = dims_of(quadruped, pt.flat_2d_lc)
 Pair = collections.namedtuple("Pair", "a b")
 Q = torch.zeros(2, DIMS.nq)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every test here, and the module's fixtures, run PyTorch on one
+    thread: a batched LAPACK factorization (the pivoted-LU KKT backend) does
+    not return on some CPU builds under a thread count between 2 and the
+    core count, and one thread a test process keeps the processes from
+    competing for the cores. Set here, not at import: a test process
+    imports every test file, and the last import would win."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def played(pair, *args):
@@ -46,6 +62,8 @@ ENTRY_POINTS = {
         DIMS, 10, v=np.ones(DIMS.nq), **kw).v,
     "contact_trajectory": lambda **kw: contact_trajectory(
         DIMS, 4, 0.01, **kw).theta,
+    "relative_state_cost": lambda **kw: relative_state_cost(
+        np.ones(3), np.ones(3), np.ones(3), **kw),
     "open_loop_policy": lambda **kw: played(pt.open_loop_policy(
         np.ones((3, DIMS.nu)), **kw), pt.PolicyObs(Q, Q, Q[:, :4], 0)),
     "open_loop_disturbances": lambda **kw: played(pt.open_loop_disturbances(

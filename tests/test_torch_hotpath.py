@@ -28,9 +28,22 @@ from contactimplicitmpc_tpu_torch.hotpath import (CONF_POSES, HotPathConfig,
                                                   conf_initial_states,
                                                   make_quadruped_rollout)
 
-torch.set_num_threads(2)
 STEPS = 10
 LANES = 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every test here, and the module's fixtures, run PyTorch on one
+    thread: a batched LAPACK factorization (the pivoted-LU KKT backend) does
+    not return on some CPU builds under a thread count between 2 and the
+    core count, and one thread a test process keeps the processes from
+    competing for the cores. Set here, not at import: a test process
+    imports every test file, and the last import would win."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def conf_lanes(model, ref, dtype=jnp.float64):
@@ -52,8 +65,12 @@ def runs():
     jcfg = JHotPath()
     jroll, jref, jmodel, _, _ = jmake_rollout(jcfg, STEPS, jnp.float64)
     q1s, v1s = conf_lanes(jmodel, jref)
-    want = jax.jit(jax.vmap(jroll))(jnp.asarray(q1s), jnp.asarray(v1s))
-    want = {k: np.asarray(v) for k, v in want._asdict().items()}
+    # one lane a call of one compiled program: tracing the rollout under
+    # vmap takes about twice as long, and the tracing is most of the time
+    jroll = jax.jit(jroll)
+    outs = [jroll(jnp.asarray(q), jnp.asarray(v)) for q, v in zip(q1s, v1s)]
+    want = {k: np.stack([np.asarray(getattr(o, k)) for o in outs])
+            for k in outs[0]._fields}
 
     cfg = interop.hotpath_config(jcfg)
     roll, ref, _, _, _ = make_quadruped_rollout(cfg, STEPS, torch.float64,

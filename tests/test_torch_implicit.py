@@ -39,10 +39,23 @@ from contactimplicitmpc_tpu_torch.models.hopper_2d import hopper_2d
 from contactimplicitmpc_tpu_torch.ops import knot_ip as knot_mod
 from contactimplicitmpc_tpu_torch.ops.fixed_ip import linearized_ip_fixed
 
-torch.set_num_threads(2)
 KAPPA = 1.0e-4
 H_MPC = 10
 LEAD = (2, 3)     # lanes × trials
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every test here, and the module's fixtures, run PyTorch on one
+    thread: a batched LAPACK factorization (the pivoted-LU KKT backend) does
+    not return on some CPU builds under a thread count between 2 and the
+    core count, and one thread a test process keeps the processes from
+    competing for the cores. Set here, not at import: a test process
+    imports every test file, and the last import would win."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -36,10 +36,23 @@ from contactimplicitmpc_tpu_torch.models.hopper_2d import hopper_2d
 from contactimplicitmpc_tpu_torch.models.particle_2d import particle_2d
 from contactimplicitmpc_tpu_torch.sim.interior_point import make_dense_solver
 
-torch.set_num_threads(2)
 MODELS = {"particle_2d": (jparticle, particle_2d),
           "hopper_2d": (jhopper, hopper_2d)}
 H = 0.01
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every test here, and the module's fixtures, run PyTorch on one
+    thread: a batched LAPACK factorization (the pivoted-LU KKT backend) does
+    not return on some CPU builds under a thread count between 2 and the
+    core count, and one thread a test process keeps the processes from
+    competing for the cores. Set here, not at import: a test process
+    imports every test file, and the last import would win."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def problems(name, batch=6, seed=0):

@@ -28,17 +28,19 @@ from contactimplicitmpc_tpu_torch.control.linearized import \
     linearize_trajectory
 from contactimplicitmpc_tpu_torch.control.trajectory import from_gait
 from contactimplicitmpc_tpu_torch.models.base import dims_of
+from contactimplicitmpc_tpu_torch.models.centroidal_quadruped import \
+    centroidal_quadruped
 from contactimplicitmpc_tpu_torch.models.quadruped import quadruped
 from contactimplicitmpc_tpu_torch.ops.fixed_ip import (knot_blocks,
                                                        linearized_ip_fixed)
 from contactimplicitmpc_tpu_torch.ops.knot_ip import (knot_ip, pack_blocks,
                                                       pack_knots,
                                                       pack_knots_plain,
-                                                      pack_layout, work)
+                                                      pack_layout,
+                                                      warp_template, work)
 from contactimplicitmpc_tpu_torch.sim.interior_point import IPOptions
 from contactimplicitmpc_tpu_torch.utils.gaits import load_gait
 
-torch.set_num_threads(2)
 KAPPA = 2.0e-4
 # the main path's knot options (HotPathConfig.mpc_ip_options), 8 iterations
 MAIN = dict(r_tol=1.0e-5, kappa_tol=KAPPA, max_iter=30, undercut=5.0,
@@ -47,6 +49,20 @@ MAIN = dict(r_tol=1.0e-5, kappa_tol=KAPPA, max_iter=30, undercut=5.0,
 F32 = dict(r_tol=2e-5, kappa_tol=KAPPA, max_iter=16, undercut=5.0,
            gamma_reg=0.1, max_ls=3, refine=1)
 FIELDS = ("z", "converged", "rvio", "kvio", "dz")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every test here, and the module's fixtures, run PyTorch on one
+    thread: a batched LAPACK factorization (the pivoted-LU KKT backend) does
+    not return on some CPU builds under a thread count between 2 and the
+    core count, and one thread a test process keeps the processes from
+    competing for the cores. Set here, not at import: a test process
+    imports every test file, and the last import would win."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
@@ -65,6 +81,30 @@ def knots():
     inputs = {k: v.numpy() for k, v in inputs.items()}
     inputs.update(alt=np.zeros((n, dims.nc)), theta=theta,
                   q2_init=ref.q[2:].numpy())
+    return dims, inputs
+
+
+@pytest.fixture(scope="module")
+def centroidal_knots():
+    """(dims, numpy inputs) for the first 10 knots of the centroidal
+    quadruped's trot on flat_3d_lc (nx 18, ny 24, ntheta 53), float64,
+    for 2 lanes with θ perturbed by 0.003·N(0, 1) from
+    ``numpy.random.default_rng(0)``: problems (2, 10)."""
+    dims = dims_of(centroidal_quadruped, pt.flat_3d_lc)
+    ref = from_gait(centroidal_quadruped, pt.flat_3d_lc,
+                    load_gait("centroidal_quadruped", "inplace_trot_v2"),
+                    update_friction=True, dtype=torch.float64, device="cpu")
+    lin = linearize_trajectory(centroidal_quadruped, pt.flat_3d_lc, ref,
+                               KAPPA)
+    k = 10
+    theta = ref.theta[:k].numpy() + 0.003 * np.random.default_rng(0) \
+        .standard_normal((2, k, dims.ntheta))
+    inputs = dict(z0_lin=lin.z0, theta0=lin.theta0, r0=lin.r0, rz0=lin.rz0,
+                  rtheta0=lin.rtheta0)
+    inputs = {key: v[:k].numpy() for key, v in inputs.items()}
+    inputs.update(alt=np.zeros((2, k, dims.nc)), theta=theta,
+                  q2_init=np.broadcast_to(ref.q[2:k + 2].numpy(),
+                                          (2, k, dims.nq)).copy())
     return dims, inputs
 
 
@@ -97,6 +137,37 @@ def test_plain_matches_jax_float64(knots):
         scale = max(1.0, float(np.abs(want[k]).max()))
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-9 * scale,
                                    err_msg=k)
+
+
+# examples/centroidal_trot.py's knot options (float32 form: 1 refinement
+# pass), 8 iterations: what the card's wide kernel runs on path D
+CENTROIDAL = dict(r_tol=1e-4, kappa_tol=KAPPA, max_iter=30, undercut=5.0,
+                  gamma_reg=0.1, max_ls=3, refine=1)
+
+
+def test_plain_matches_jax_centroidal(centroidal_knots):
+    """The plain version at the centroidal quadruped's dimensions, which
+    the kernel takes with a block a problem (``struct WLay``): float64, 8
+    iterations, 1 refinement pass, against JAX's ``linearized_ip_fixed``
+    on 2 lanes × 10 knots; z, rvio, kvio and dz to 1e-8, identical
+    converged flags."""
+    dims, inputs = centroidal_knots
+    assert (dims.nx, dims.ny, dims.ntheta) == (18, 24, 53)
+    assert not warp_template(dims)
+    jd = JDims(**dataclasses.asdict(dims))
+    jopts = JIPOptions(**CENTROIDAL)
+    per_knot = jax.vmap(lambda *a: jax_fixed(jd, *a, jopts, iters=8))
+    out = jax.jit(jax.vmap(lambda a, th, q: per_knot(
+        *(jnp.asarray(inputs[key]) for key in ORDER[:5]), a, th, q)))(
+            *(jnp.asarray(inputs[key]) for key in ORDER[5:]))
+    want = {key: np.asarray(getattr(out, key)) for key in FIELDS}
+    got = run_port(dims, inputs, CENTROIDAL, 8, torch.float64)
+    np.testing.assert_array_equal(got["converged"], want["converged"])
+    assert want["converged"].mean() > 0.5, want["converged"].mean()
+    for key in ("z", "rvio", "kvio", "dz"):
+        scale = max(1.0, float(np.abs(want[key]).max()))
+        np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                   atol=1e-8 * scale, err_msg=key)
 
 
 def close_f32(dims, got_z, want_z, both):
@@ -243,6 +314,39 @@ def test_work_count_scales(knots, iters, refine, max_ls):
     assert work(dims, 9, 9, iters + 1, refine + 1, max_ls)[0] > f1
     assert work(dims, 9, 9, iters + 1, refine, max_ls + 1)[0] > f1
     assert work(dims, 9, 9, iters + 1, refine, max_ls)[1] == b1
+
+
+def test_plain_packing_of_wide_knots(centroidal_knots):
+    """The layout of the block-a-problem template (``struct WLay``): no
+    slot padding, rows at an odd stride (no two threads reading a row each
+    share a bank), every block at its place, zeros elsewhere, the size a
+    multiple of 16 bytes; the kernel's own count of it is checked against
+    ``pack_layout`` where the kernel is built."""
+    dims, inputs = centroidal_knots
+    t = [torch.as_tensor(inputs[k], dtype=torch.float32) for k in ORDER[:5]]
+    z0, theta0, r0, rz0, rtheta0 = t
+    lay = pack_layout(dims)
+    assert lay.slots == tuple(range(dims.nz)) and lay.size % 4 == 0
+    assert "dxdy" not in lay.blocks
+    assert all(stride % 2 == 1 for name, (_, rows, stride, _) in
+               lay.blocks.items() if rows > 1)
+    pack = pack_knots_plain(dims, *t)
+    assert torch.equal(pack_knots(dims, *t), pack)
+    ne = dims.nx + dims.ny
+    b = knot_blocks(dims, rz0)
+    diag = lambda m: torch.diagonal(m, dim1=-2, dim2=-1)
+    want = {"rza": rz0[:, :ne], "dxi": b.dxi, "dy1": b.dy1, "cai": b.cai,
+            "sb": b.ry1 - b.caib, "ry1d": diag(b.ry1), "caibd": diag(b.caib),
+            "ry2": b.ry2, "z0": z0, "r0": r0[:, :ne], "theta0": theta0,
+            "rtheta0": rtheta0.reshape(10, -1)}
+    got = pack_blocks(dims, pack)
+    assert list(got) == list(want)
+    used = torch.zeros(lay.size, dtype=torch.bool)
+    for name, (off, rows, stride, cols) in lay.blocks.items():
+        assert torch.equal(got[name], want[name].reshape(got[name].shape)), name
+        for row in range(rows):
+            used[off + row * stride:off + row * stride + cols] = True
+    assert bool((pack[:, ~used] == 0).all())
 
 
 def test_plain_packing_holds_fixed_ip_blocks(knots):

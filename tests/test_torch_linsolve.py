@@ -15,8 +15,21 @@ from contactimplicitmpc_tpu.ops import linsolve as jl
 
 from contactimplicitmpc_tpu_torch.ops import linsolve as tl
 
-torch.set_num_threads(2)
 TOL = dict(rtol=1e-10, atol=1e-12)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every test here, and the module's fixtures, run PyTorch on one
+    thread: a batched LAPACK factorization (the pivoted-LU KKT backend) does
+    not return on some CPU builds under a thread count between 2 and the
+    core count, and one thread a test process keeps the processes from
+    competing for the cores. Set here, not at import: a test process
+    imports every test file, and the last import would win."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def sqd(rng, batch, n, m):

@@ -41,9 +41,22 @@ from contactimplicitmpc_tpu_torch.models.quadruped import (
 from contactimplicitmpc_tpu_torch.sim.residual import residual
 from contactimplicitmpc_tpu_torch.utils.gaits import load_gait
 
-torch.set_num_threads(2)
 F64 = torch.float64
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every test here, and the module's fixtures, run PyTorch on one
+    thread: a batched LAPACK factorization (the pivoted-LU KKT backend) does
+    not return on some CPU builds under a thread count between 2 and the
+    core count, and one thread a test process keeps the processes from
+    competing for the cores. Set here, not at import: a test process
+    imports every test file, and the last import would win."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def t64(x):

@@ -27,6 +27,8 @@ from contactimplicitmpc_tpu.control.implicit_dynamics import \
 from contactimplicitmpc_tpu.control.implicit_dynamics import \
     implicit_dynamics as jimplicit
 from contactimplicitmpc_tpu.control.linearized import \
+    LinearizedData as JLinearizedData
+from contactimplicitmpc_tpu.control.linearized import \
     linearize_trajectory as jlinearize
 from contactimplicitmpc_tpu.control.newton import \
     NewtonAssembler as JNewtonAssembler
@@ -43,18 +45,22 @@ import contactimplicitmpc_tpu_torch as pt
 from contactimplicitmpc_tpu_torch import interop
 from contactimplicitmpc_tpu_torch.control.implicit_dynamics import (
     CONFIGURATION, CONFIGURATION_FORCE, implicit_dynamics, nd_of)
+from contactimplicitmpc_tpu_torch.control.linearized import \
+    linearize_trajectory
 from contactimplicitmpc_tpu_torch.control.newton import (NewtonAssembler,
                                                          newton_solve)
+from contactimplicitmpc_tpu_torch.models.quadruped import quadruped
 from contactimplicitmpc_tpu_torch.control.trajectory import expand_traj
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
-    """Every test here runs PyTorch on one thread: a batched LAPACK
-    factorization of a 160 × 160 system (the pivoted-LU KKT backend) does
+    """Every test here, and the module's fixtures, run PyTorch on one
+    thread: a batched LAPACK factorization (the pivoted-LU KKT backend) does
     not return on some CPU builds under a thread count between 2 and the
-    core count. Set inside the tests, not at import: a test process imports
-    every test file, and the last import would win."""
+    core count, and one thread a test process keeps the processes from
+    competing for the cores. Set here, not at import: a test process
+    imports every test file, and the last import would win."""
     before = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -79,13 +85,15 @@ def hopper_objective(jd, velocity):
                               **common)
 
 
-def solve_both(jmodel, ref, kappa, obj, mode, n_opts, ip_opts, lanes, seed):
+def solve_both(jmodel, ref, kappa, obj, mode, n_opts, ip_opts, lanes, seed,
+               lin=None):
     """One Newton solve a lane in both packages, from the reference warm
     start, with the measured (q0, q1) of lane i the reference's plus
-    0.02 · i / lanes · N(0, 1)."""
+    0.02 · i / lanes · N(0, 1). Both take the linearization ``lin`` of the
+    reference (JAX's own where it is not given)."""
     env = ci.flat_2d_lc
     jd = ci.dims_of(jmodel, env)
-    lin = jlinearize(jmodel, env, ref, kappa)
+    lin = jlinearize(jmodel, env, ref, kappa) if lin is None else lin
     lin_w = type(lin)(*(x[:H_MPC] for x in lin))
     window = _slice_horizon(ref, H_MPC)
     rng = np.random.default_rng(seed)
@@ -168,7 +176,10 @@ def test_hopper_newton_bounded_growth_matches(hopper_ref):
 
 def test_quadruped_newton_matches():
     """One direct-mode solve of the flat-ground quadruped at the hot path's
-    options (two lanes): a 300 × 300 quasidefinite KKT, unpivoted LDLᵀ."""
+    options (two lanes): a 300 × 300 quasidefinite KKT, unpivoted LDLᵀ.
+    Both packages take the port's linearization of the gait (held to JAX's
+    in tests/test_torch_model.py), which the port forms in a fraction of
+    the time JAX's nested forward-mode Jacobians take eagerly."""
     cfg = JHotPath(newton_mode="direct")
     env = ci.flat_2d_lc
     jd = ci.dims_of(jquadruped, env)
@@ -177,8 +188,13 @@ def test_quadruped_newton_matches():
     obj = jquadruped_weights(jd, H_MPC, jnp.float64)
     import dataclasses
     n_opts = dataclasses.replace(cfg.newton_options(), max_iter=2)
+    tlin = linearize_trajectory(quadruped, pt.flat_2d_lc,
+                                interop.contact_traj(ref, device="cpu"),
+                                cfg.kappa_mpc)
+    lin = JLinearizedData(*(jnp.asarray(x.numpy()) for x in tlin))
     got, want = solve_both(jquadruped, ref, cfg.kappa_mpc, obj, CONFIGURATION,
-                           n_opts, cfg.mpc_ip_options(), lanes=2, seed=2)
+                           n_opts, cfg.mpc_ip_options(), lanes=2, seed=2,
+                           lin=lin)
     assert int(np.asarray(want.iterations).max()) > 0
     assert_same(got, want)
 

@@ -41,8 +41,21 @@ from contactimplicitmpc_tpu_torch.hotpath import (HotPathConfig,
                                                   make_quadruped_rollout)
 from contactimplicitmpc_tpu_torch.utils import spans
 
-torch.set_num_threads(2)
 H, KAPPA = 10, 1.0e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every test here, and the module's fixtures, run PyTorch on one
+    thread: a batched LAPACK factorization (the pivoted-LU KKT backend) does
+    not return on some CPU builds under a thread count between 2 and the
+    core count, and one thread a test process keeps the processes from
+    competing for the cores. Set here, not at import: a test process
+    imports every test file, and the last import would win."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.mark.parametrize("trial_ip,fixed_newton", [(4, 0), (0, 3), (4, 2)])

@@ -45,11 +45,24 @@ from contactimplicitmpc_tpu_torch.control.trajectory import (
     contact_trajectory, get_stride, rot_n_stride, tracking_error)
 from contactimplicitmpc_tpu_torch.models.hopper_2d import hopper_2d
 
-torch.set_num_threads(2)
 H_MPC, N_SAMPLE, KAPPA, STEPS, LANES = 10, 5, 1.0e-4, 20, 3
 MPC_OPTS = JCIMPCOptions(altitude_update=True, altitude_impact_threshold=0.05)
 SIM_OPTS = JIPOptions(r_tol=1e-8, kappa_tol=1e-8, max_iter=100,
                       undercut=float("inf"), max_ls=6)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every test here, and the module's fixtures, run PyTorch on one
+    thread: a batched LAPACK factorization (the pivoted-LU KKT backend) does
+    not return on some CPU builds under a thread count between 2 and the
+    core count, and one thread a test process keeps the processes from
+    competing for the cores. Set here, not at import: a test process
+    imports every test file, and the last import would win."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -27,8 +27,21 @@ from contactimplicitmpc_tpu_torch.models.particle_2d import (Particle2D,
                                                              particle_2d)
 from contactimplicitmpc_tpu_torch.sim import stats
 
-torch.set_num_threads(2)
 LEAVES = ("q", "u", "w", "gamma", "b", "z")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every test here, and the module's fixtures, run PyTorch on one
+    thread: a batched LAPACK factorization (the pivoted-LU KKT backend) does
+    not return on some CPU builds under a thread count between 2 and the
+    core count, and one thread a test process keeps the processes from
+    competing for the cores. Set here, not at import: a test process
+    imports every test file, and the last import would win."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def both(jmodel, model, jenv, env, steps, h, q1, v1, jkw=None, kw=None):

@@ -39,9 +39,22 @@ from contactimplicitmpc_tpu_torch.sim.interior_point import (ip_solve,
 from contactimplicitmpc_tpu_torch.sim.residual import pack_theta, residual
 from contactimplicitmpc_tpu_torch.utils.gaits import load_gait
 
-torch.set_num_threads(2)
 F64 = torch.float64
 KAPPA = 2.0e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every test here, and the module's fixtures, run PyTorch on one
+    thread: a batched LAPACK factorization (the pivoted-LU KKT backend) does
+    not return on some CPU builds under a thread count between 2 and the
+    core count, and one thread a test process keeps the processes from
+    competing for the cores. Set here, not at import: a test process
+    imports every test file, and the last import would win."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def t64(x):
@@ -82,9 +95,14 @@ def test_sim_ip_step_matches_jax(gait):
         return ci.ip_solve(jd, lambda z, t, k: ci.residual(
             jquad, ci.flat_2d_lc, z, t, k), z0, th, jopts)
 
-    want = jax.jit(jax.vmap(one))(
-        jnp.asarray(z_initialize(dims, t64(q1)).numpy()),
-        jnp.asarray(theta.numpy()))
+    # one lane a call of one compiled program: tracing under vmap takes
+    # about twice as long, and the tracing is most of the time
+    one = jax.jit(one)
+    outs = [one(jnp.asarray(z0), jnp.asarray(th)) for z0, th in
+            zip(z_initialize(dims, t64(q1)).numpy(), theta.numpy())]
+    want = type(outs[0])(*(None if xs[0] is None else
+                           np.stack([np.asarray(x) for x in xs])
+                           for xs in zip(*outs)))
     assert bool(np.all(np.asarray(want.converged)))
     np.testing.assert_array_equal(got.converged.numpy(),
                                   np.asarray(want.converged))

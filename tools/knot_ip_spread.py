@@ -2,9 +2,12 @@
 ``linearized_ip_fixed`` against the port's plain version, on the CPU, on
 the problems chip_smoke.py gives the kernel.
 
-    JAX_PLATFORMS=cpu python tools/knot_ip_spread.py [hopper_2d|quadruped]
+    JAX_PLATFORMS=cpu python tools/knot_ip_spread.py \
+        [hopper_2d|quadruped|centroidal_quadruped]
 
-The knots are the gait's first 10, linearized by each package in float32;
+The knots are the gait's first 10 (the centroidal quadruped's: its in-place
+trot on flat_3d_lc, with examples/centroidal_trot.py's float32 knot
+options), linearized by each package in float32;
 θ is perturbed by 0.003·N(0, 1) from numpy.random.default_rng(0) for
 16 lanes × 7 trials × 10 knots = 1120 problems. Prints one JSON line for
 1, 3 and 8 iterations: the largest |Δz| and relative |Δdz| over all
@@ -35,7 +38,9 @@ from contactimplicitmpc_tpu.control.implicit_dynamics import \
 from contactimplicitmpc_tpu.control.linearized import \
     linearize_trajectory as jlinearize  # noqa: E402
 from contactimplicitmpc_tpu.hotpath import HotPathConfig  # noqa: E402
-from contactimplicitmpc_tpu.models import hopper_2d, quadruped  # noqa: E402
+from contactimplicitmpc_tpu.models import (centroidal_quadruped,  # noqa: E402
+                                           hopper_2d, quadruped)
+from contactimplicitmpc_tpu.sim.interior_point import IPOptions  # noqa: E402
 from contactimplicitmpc_tpu.ops.fixed_ip import \
     linearized_ip_fixed as jfixed  # noqa: E402
 from contactimplicitmpc_tpu.utils.gaits import load_gait  # noqa: E402
@@ -57,6 +62,14 @@ def main():
         ref = jfrom_gait(model, env, load_gait("hopper_2D", "gait_in_place"),
                          kappa=kappa, dtype=jnp.float32)
         opts = default_mpc_ip_options(kappa)
+    elif name == "centroidal_quadruped":
+        env, model, kappa = ci.flat_3d_lc, centroidal_quadruped, 2.0e-4
+        ref = jfrom_gait(model, env,
+                         load_gait("centroidal_quadruped", "inplace_trot_v2"),
+                         update_friction=True, dtype=jnp.float32)
+        opts = IPOptions(r_tol=1e-4, kappa_tol=kappa, max_iter=30,
+                         undercut=5.0, gamma_reg=0.1, diff_sol=True,
+                         max_ls=3, refine=1)
     else:
         cfg = HotPathConfig()
         model, kappa = quadruped, cfg.kappa_mpc

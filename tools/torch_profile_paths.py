@@ -1,11 +1,12 @@
-"""Where one control period of each of chip_smoke.py's three paths spends
+"""Where one control period of each of chip_smoke.py's four paths spends
 the device's time, on the GPU.
 
     python3 tools/torch_profile_paths.py
 
 For path A (quadruped, structure-mode Newton), path B (2D hopper,
-``simulate`` + ``ci_mpc_policy``, direct-mode Newton) and path C (quadruped,
-direct-mode Newton), 16 lanes each: warm up one period, time one period
+``simulate`` + ``ci_mpc_policy``, direct-mode Newton), path C (quadruped,
+direct-mode Newton) and path D (centroidal quadruped, ``mpc_rollout``
+direct), 16 lanes each: warm up one period, time one period
 on the host clock without a profiler, then run one period under
 ``torch.profiler`` and print one JSON line a path: the unprofiled wall, the
 device's busy time (the sum of every kernel's self time) and its share of
@@ -18,6 +19,7 @@ slows the host, so the busy share is taken against the unprofiled wall.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,12 +50,15 @@ def main():
         capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     hopper_roll, _, n_sample, _ = chip_smoke.hopper_rollout(dev)
+    centroidal_roll, _, n_sample_d, _ = chip_smoke.centroidal_rollout(dev)
     paths = {
         "A quadruped structure": quadruped_period(HotPathConfig(), dev),
         "B hopper_2d simulate+ci_mpc_policy direct":
             lambda: hopper_roll(n_sample),
         "C quadruped direct": quadruped_period(
-            HotPathConfig(newton_mode="direct"), dev)}
+            HotPathConfig(newton_mode="direct"), dev),
+        "D centroidal_quadruped mpc_rollout direct":
+            lambda: centroidal_roll(n_sample_d)}
     for name, period in paths.items():
         period()
         torch.cuda.synchronize()
@@ -67,8 +72,8 @@ def main():
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in kernels) * 1e-6
-        knot = [e for e in kernels if "knot_ip_kernel" in e.key
-                or "knot_pack_kernel" in e.key]
+        knot = [e for e in kernels
+                if re.search(r"knot_(ip|pack)(_wide)?_kernel", e.key)]
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
         print(json.dumps({
             "path": name, "card": card, "lanes": 16, "steps": 5,
