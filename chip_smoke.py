@@ -7,9 +7,12 @@ Phases (any failure raises and the script exits non-zero):
 1. device — require CUDA, print the card's name and power limit, pin full
    float32 products;
 2. build — compile the knot interior-point kernel (csrc/knot_ip.cu) from
-   this checkout with nvcc; one build holds the three instantiations
-   (quadruped and 2D hopper a warp a problem, the centroidal quadruped a
-   block a problem);
+   this checkout with nvcc; one build holds the ten instantiations, one for
+   the dimensions of each model of the JAX package (ops/knot_ip.py's
+   KNOT_IP_MODELS, a warp a problem: quadruped, 2D hopper, flamingo, 2D
+   particle, pushbot, walled cartpole; KNOT_IP_WIDE_MODELS, a block a
+   problem: centroidal quadruped, 3D particle, 3D hopper, centroidal
+   quadruped at the wall);
 3. kernel against its plain version, at the quadruped's dimensions — the
    gait2 knots linearized on the card, θ perturbed by 0.003·N(0, 1) from
    numpy.random.default_rng(0), at the structure path's two shapes (16
@@ -18,7 +21,7 @@ Phases (any failure raises and the script exits non-zero):
    (K = 10 knots: 1120 and 160), at N = 3 and at N = 256 × 63 = 16128
    (past 2048 problems a block holds 8 warps, not 1): every problem after
    1 and 3 iterations (``max_abs_err`` below is the largest |Δz| there,
-   over both instantiations), and shares of agreeing problems after the
+   over every instantiation), and shares of agreeing problems after the
    main path's 8; the kernel's per-knot prologue against the plain packing
    of the same constants; then warm times of both at N = 144, 1008, 16128
    and at K = 10 (CUDA events; the kernel's launches queued behind a spin
@@ -29,23 +32,30 @@ Phases (any failure raises and the script exits non-zero):
    TB/s, both counted by ``work`` from the shapes;
 4. the same at the 2D hopper's dimensions (nx 4, ny 4, nθ 14, nc 1) — the
    in-place gait's knots, N = 16 × 7 × 10 = 1120, 16 × 1 × 10 = 160, 3 and
-   37 × 7 × 10 = 2590: every problem after 1 and 3 iterations, shares
-   after 8, the prologue, times and bounds; and a model the build does not
-   hold raises;
-5. the wide template (a block a problem) at the centroidal quadruped's
-   dimensions (nx 18, ny 24, nθ 53, nc 4) — the in-place trot's knots on
-   flat_3d_lc with examples/centroidal_trot.py's float32 knot options, N =
-   16 × 7 × 10 = 1120, 16 × 1 × 10 = 160, 3 and 64 × 7 × 10 = 4480: every
-   problem after 1 and 3 iterations, shares after 8, the prologue, times
-   and bounds;
-6. path A — the flat-ground quadruped closed-loop MPC rollout at the
-   HotPathConfig defaults (structure-mode Newton), float32, 16 lanes × 50
-   sim steps, with the kernel's launch counter read around it and the
+   37 × 7 × 10 = 2590; and dimensions the build does not hold (the 2D
+   particle on the nonlinear cone) raise;
+5. the same at each of the other paths' instantiations, on the path's own
+   knots and N = 16 × 7 × K, 16 × 1 × K, 3 and 64 × 7 × K: the centroidal
+   quadruped's (block template, K = 10, the in-place trot), the flamingo's
+   (warp template, nx 9, ny 16, nθ 28, nc 4, K = 15, gait_forward_36_4
+   with examples/flamingo_slope.py's knot options) and the 3D hopper's
+   (block template, nx 7, ny 6, nθ 22, nc 1, K = 20, gait_forward with
+   tests/test_mpc_hopper_3d.py's knot options);
+6. the same at the instantiations no path runs — pushbot (K = 40),
+   walled cartpole, 2D and 3D particle, centroidal quadruped at the wall
+   (K = 10), K their examples' horizons — on the knots of a short float64
+   simulate of the model from its example's or test's initial state
+   (``PATHLESS``, committed by tools/knot_states.py), N = 16 × 7 × K,
+   16 × 1 × K and 3;
+7. path A — the flat-ground quadruped closed-loop MPC rollout at the
+   HotPathConfig defaults (structure-mode Newton), float32, 16 lanes × 25
+   sim steps (50 until PR 5: cut to make room for E and F), with the
+   kernel's launch counter read around it and the
    closed-loop health checked as tests/test_hotpath.py checks the JAX
    package: the same 16 lanes (``hotpath.conf_initial_states``), the
    nominal lane inside the reference CI thresholds, at least 90% of lanes
    with ≥ 95% converged sim steps;
-7. path B — the general path on the 2D hopper, the configuration of
+8. path B — the general path on the 2D hopper, the configuration of
    examples/hopper_monte_carlo.py: ``simulate`` driven by
    ``ci_mpc_policy`` with direct-mode Newton (8 fixed knot iterations, so
    that the knot solves launch the kernel) and adaptive sim solves, 16
@@ -57,10 +67,10 @@ Phases (any failure raises and the script exits non-zero):
    and stays inside tests/test_mpc_hopper.py's bounds (its height bound is
    taken at that test's step 500; at step 100 the gait is at its apex, and
    the band here is the example's 0 < z < 1);
-8. path C — the quadruped through ``mpc_rollout`` with
+9. path C — the quadruped through ``mpc_rollout`` with
    ``HotPathConfig(newton_mode="direct")`` (a 300 × 300 KKT a lane), 16
    lanes × 25 sim steps, the health of path A;
-9. path D — the centroidal quadruped (18 DoF, 3D) through ``mpc_rollout``
+10. path D — the centroidal quadruped (18 DoF, 3D) through ``mpc_rollout``
    in examples/centroidal_trot.py's configuration (direct-mode Newton in
    configuration mode, a 480 × 480 KKT a lane, fixed 8-iteration knot
    solves on the wide template, adaptive float32 sim solves, a warm-start
@@ -70,27 +80,53 @@ Phases (any failure raises and the script exits non-zero):
    The nominal lane converges every step with q error < 0.05 and a lowest
    body height above half the reference's; at most one lane fewer than the
    JAX package's 16 converges every step;
-10. spans — each path once more for 2 control periods with
+11. path E — the flamingo up the smooth slope through ``mpc_rollout`` in
+   examples/flamingo_slope.py's configuration as
+   tests/test_mpc_flamingo_slope.py checks it (the controller on
+   flat_2d_lc, the physics on slope_smooth_2d_lc, configuration mode, a
+   360 × 360 KKT a lane, fixed 8-iteration knot solves on the warp
+   template, altitude update at 0.02, a warm-start floor of 1e-2, adaptive
+   float32 sim solves: r_tol 1e-3, κ_tol 1e-5, 40 iterations, as the
+   example's 1e-8 is out of float32's reach), 16 lanes ×
+   10 sim steps: lane 0 nominal, lanes 1-15 the torso moved and tilted
+   (assets/flamingo_offsets16.npz, tools/flamingo_lanes_reference.py). The
+   nominal lane converges every step, moves up the slope, keeps its torso
+   0.4 above the terrain and its |angle| under 0.5; at most one lane fewer
+   than the JAX package's 16 converges every step. The flamingo's
+   ``torch.func`` derivatives cost two to three minutes a period on the
+   card, so E runs 10 steps, not the 50 of D, once, with the spans on;
+12. path F — the 3D hopper hopping forward: ``simulate`` driven by
+   ``ci_mpc_policy`` in tests/test_mpc_hopper_3d.py's configuration
+   (gait_forward on flat_3d_lc, configuration mode, a 340 × 340 KKT a
+   lane, fixed 8-iteration knot solves on the block template, altitude
+   update at 0.05, float32 adaptive sim solves with the test's line-search
+   floor eps_min 0.25), 16 lanes × 100 sim steps
+   (assets/hopper3d_offsets16.npz, tools/hopper3d_lanes_reference.py). The
+   nominal lane converges every step and travels forward more than half
+   the reference's stride over the same knots; at most one lane fewer
+   than the JAX package's 16 converges every step;
+13. spans — paths A-D and F once more for 2 control periods (F: 1) with
    host-synchronised spans on (sim IP, Newton, of it the KKT solve and the
-   knot kernel).
+   knot kernel); E's counted run carries them.
 
 JSON lines give the bound and the kernel's share of it at each timed
 shape; the line before the card's name is a JSON object with the kernel's
-comparison, launches (summed over the four paths, and by path), times and
-bound at path A's N = 1008 and, beside them, the hopper instantiation's
-and the centroidal quadruped's at N = 1120; the last
-line is ``{"ok": true, "device": {...}}``.
+comparison, launches (summed over the six paths, and by path), times and
+bound at path A's N = 1008 and, in ``instantiations``, each of the ten
+with its dimensions, template, models, paths and launches and its time,
+plain time, bound and share at its path's N; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
-
-import os
 
 import contactimplicitmpc_tpu_torch as pt
 from contactimplicitmpc_tpu_torch.control.implicit_dynamics import (
@@ -99,24 +135,29 @@ from contactimplicitmpc_tpu_torch.control.linearized import \
     linearize_trajectory
 from contactimplicitmpc_tpu_torch.control.newton import NewtonOptions
 from contactimplicitmpc_tpu_torch.control.rollout import mpc_rollout
-from contactimplicitmpc_tpu_torch.control.objective import \
-    tracking_velocity_objective
+from contactimplicitmpc_tpu_torch.control.objective import (
+    tracking_objective, tracking_velocity_objective)
+from contactimplicitmpc_tpu_torch.control.policy import CIMPCOptions
 from contactimplicitmpc_tpu_torch.control.trajectory import (
-    from_gait, initial_conditions, tracking_errors)
-from contactimplicitmpc_tpu_torch.dims import Dims
-from contactimplicitmpc_tpu_torch.env import flat_2d_lc, flat_3d_lc
+    ContactTraj, from_gait, initial_conditions, tracking_errors)
+from contactimplicitmpc_tpu_torch.env import (flat_2d_lc, flat_2d_nc,
+                                              flat_3d_lc, slope_smooth_2d_lc)
 from contactimplicitmpc_tpu_torch.hotpath import (HotPathConfig,
                                                   conf_initial_states,
                                                   make_quadruped_rollout)
+from contactimplicitmpc_tpu_torch.models import MODELS
 from contactimplicitmpc_tpu_torch.models.base import dims_of
 from contactimplicitmpc_tpu_torch.models.centroidal_quadruped import \
     centroidal_quadruped
+from contactimplicitmpc_tpu_torch.models.flamingo import flamingo
 from contactimplicitmpc_tpu_torch.models.hopper_2d import hopper_2d
-from contactimplicitmpc_tpu_torch.models.quadruped import quadruped
+from contactimplicitmpc_tpu_torch.models.hopper_3d import hopper_3d
+from contactimplicitmpc_tpu_torch.models.particle_2d import particle_2d
 from contactimplicitmpc_tpu_torch.ops import knot_ip as knot_mod
 from contactimplicitmpc_tpu_torch.ops.fixed_ip import linearized_ip_fixed
 from contactimplicitmpc_tpu_torch.ops.knot_ip import knot_ip
 from contactimplicitmpc_tpu_torch.sim.interior_point import IPOptions
+from contactimplicitmpc_tpu_torch.sim.simulator import default_sim_options
 from contactimplicitmpc_tpu_torch.utils import spans
 from contactimplicitmpc_tpu_torch.utils.gaits import load_gait
 
@@ -160,6 +201,41 @@ CENTROIDAL_SHARES = dict(HOPPER_SHARES)
 # 0.2853–0.3025 over the lanes against the reference's 0.2995, 2.44 Newton
 # iterations a period. The port may lose one lane.
 CENTROIDAL_JAX_OK = 16
+# The instantiations this slice adds, after 8 iterations, set the same way
+# (tools/knot_ip_spread.py MODEL on the CPU, 16 lanes × 7 trials × K knots),
+# against the JAX package and against the plain version with the line
+# search's equality rows in the kernel's form (``kernel_form``):
+# - flamingo (K = 15; the example's r_tol 1e-8: no float32 solve flags a
+#   problem converged, shares over all problems): against JAX flags 100%,
+#   q2 99.88%, z 97.98%, dz 98.27%; against the kernel's form flags 100%,
+#   q2 99.40%, z 89.88%, dz 85.77%. Its residual sits at the float32 floor
+#   through all 8 iterations, where r − α Rza d and the residual at the
+#   candidate round apart and pick other candidates: the kernel parts from
+#   the plain version as far as that form does, so its bounds sit under
+#   the kernel form's;
+# - hopper_3D (K = 20, r_tol 1e-4): 81.6% converge in both, flags agree on
+#   100%, and on the problems both flag, q2, z and dz 100%, in both;
+# - pushbot (K = 40): flags ≥ 99.98%, q2 100%, z ≥ 99.24%, dz ≥ 99.82%;
+#   walledcartpole, particle, the wall (K = 10): 100% on all four;
+#   particle_2D (K = 10): flags 98.93%, q2 100%, z 99.73%, dz 99.55%.
+# The other bounds are the hopper's: over all problems where r_tol 1e-8
+# leaves none converged, over the converged ones for the 3D hopper.
+SHARES = {name: dict(HOPPER_SHARES) for name in (
+    "hopper_3D", "pushbot", "walledcartpole", "particle_2D", "particle",
+    "centroidal_quadruped_wall")}
+SHARES["flamingo"] = {"conv_agree": 0.97, "q2_share": 0.97, "z_share": 0.85,
+                      "dz_share": 0.80}
+# Paths E's and F's lanes in the JAX package (float32 on the CPU, the same
+# 16 lanes and steps with fixed 8-iteration knot solves):
+# tools/flamingo_lanes_reference.py: all 16 converge every sim step, up the
+# slope by 0.0305-0.0486 (nominal 0.0376), torso clearance ≥ 0.792, |torso
+# angle| ≤ 0.0198, 3.01 Newton iterations a period;
+# tools/hopper3d_lanes_reference.py: all 16 converge every sim step, the
+# nominal lane travels 0.00370 against half the reference's stride 0.00174
+# (13 of 16 lanes past it), nominal q/u/γ/b errors 0.00490 / 0.195 / 0.446
+# / 0.134. The port may lose one lane.
+FLAMINGO_JAX_OK = 16
+HOPPER3D_JAX_OK = 16
 QUADRUPED_SHARES = {"conv_agree": CONV_AGREE, "q2_share": Q2_SHARE,
                     "z_share": Z_SHARE, "dz_share": DZ_SHARE}
 # The prologue's products and inverse against the plain packing: both sum
@@ -195,12 +271,47 @@ def cuda_ms(fn, reps, spin=False):
     return start.elapsed_time(end) / reps
 
 
-HOPPER_OFFSETS = os.path.join(
-    os.path.dirname(os.path.abspath(pt.__file__)), "assets",
-    "hopper_offsets16.npz")
-CENTROIDAL_OFFSETS = os.path.join(
-    os.path.dirname(os.path.abspath(pt.__file__)), "assets",
-    "centroidal_offsets16.npz")
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(pt.__file__)), "assets")
+HOPPER_OFFSETS = os.path.join(ASSETS, "hopper_offsets16.npz")
+CENTROIDAL_OFFSETS = os.path.join(ASSETS, "centroidal_offsets16.npz")
+FLAMINGO_OFFSETS = os.path.join(ASSETS, "flamingo_offsets16.npz")
+HOPPER3D_OFFSETS = os.path.join(ASSETS, "hopper3d_offsets16.npz")
+KNOT_STATES = os.path.join(ASSETS, "knot_states.npz")
+
+
+def _wall_stance():
+    """examples/centroidal_wall_sim.py's stance, the feet launched at the
+    wall at 10 m/s: (q1, v1)."""
+    q1 = np.zeros(18)
+    q1[2] = 0.3
+    for i, (fx, fy) in enumerate([[0.1, 0.1], [0.1, -0.1], [-0.1, 0.1],
+                                  [-0.1, -0.1]]):
+        q1[6 + 3 * i:9 + 3 * i] = [fx, fy, 0.05]
+    v1 = np.zeros(18)
+    v1[6::3] = 10.0
+    return q1.tolist(), v1.tolist()
+
+
+# The instantiations that no path runs, and their knots: the last K steps
+# of a float64 ``simulate`` of one lane from the example's or the test's
+# initial state, at the example's MPC time step (tools/knot_states.py runs
+# it and commits the states as KNOT_STATES); N = lanes × trials × K, K the
+# example's horizon. Knot options: the examples' default_mpc_ip_options (κ
+# of examples/pushbot_push_recovery.py and examples/cartpole_wall.py); the
+# particles and the wall have no MPC example and take κ = 1e-4. Rows:
+# (registry name, terrain, q1, v1, h, steps, K, κ, source of the state).
+PATHLESS = (
+    ("pushbot", flat_2d_lc, [0.3, 0.0], [0.0, 0.0], 0.04, 60, 40, 1e-4,
+     "examples/pushbot_push_recovery.py (h, H), tests/test_models_more.py"),
+    ("walledcartpole", flat_2d_lc, [0.2, 0.0, 0.0, 0.0], [0.0] * 4, 0.04, 20,
+     10, 2e-4, "examples/cartpole_wall.py (h, H), tests/test_models_more.py"),
+    ("particle_2D", flat_2d_lc, [0.0, 1.0], [1.0, 0.0], 0.01, 60, 10, 1e-4,
+     "tests/test_simulator.py (the slide)"),
+    ("particle", flat_3d_lc, [0.0, 0.0, 1.0], [1.0, 2.0, 0.0], 0.01, 60, 10,
+     1e-4, "tests/test_simulator.py (the slide)"),
+    ("centroidal_quadruped_wall", flat_3d_lc, *_wall_stance(), 0.01, 10, 10,
+     1e-4, "examples/centroidal_wall_sim.py"),
+)
 
 
 def knot_problems(lin, ref, lanes, trials, stages, rng, dims):
@@ -229,10 +340,19 @@ def compare_pack(dims, knots):
         if name in PACK_EXACT:
             assert torch.equal(a, b), name
         else:
-            rel = float((a - b).abs().max()) / float(b.abs().max())
+            rel = float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
             assert rel <= PACK_TOL, (name, rel)
             worst = max(worst, rel)
-    assert bool((got[want == 0] == 0).all()), "padding not zero"
+    # zeros of the plain packing that the kernel must keep: padding and
+    # the copies' (a computed entry may sum to a tiny value where the plain
+    # version's terms cancel exactly; the relative bound covers it)
+    zero = want == 0
+    for name, (off, rows, stride, cols) in knot_mod.pack_layout(
+            dims).blocks.items():
+        if name not in PACK_EXACT:
+            for row in range(rows):
+                zero[:, off + row * stride:off + row * stride + cols] = False
+    assert bool((got[zero] == 0).all()), "padding not zero"
     print(f"prologue vs plain packing, K={got.shape[0]}: copies equal, "
           f"largest relative error of a computed block {worst:.3g}",
           flush=True)
@@ -282,18 +402,41 @@ def compare_full(dims, out, ref, bounds, converged_only=True):
     return stats
 
 
-def kernel_phase(name, model, gait, kappa, opts, iters, shapes, shares,
-                 timed, tag, update_friction=False, converged_only=True,
-                 env=flat_2d_lc):
-    """One instantiation against its plain version: every problem of
-    ``shapes`` (lanes, trials, knots) after 1 and 3 iterations, shares of
-    the first shape after ``iters``, the prologue, and times and bounds of
-    the ``timed`` shapes. Returns (largest |Δz|, {N: (kernel ms, plain ms,
-    bound ms, bound by)})."""
+def simulate_states(model, env, q1, v1, h, steps, knots):
+    """The last ``knots`` steps of a ``simulate`` of one lane from (q1, v1)
+    with time step ``h``, float64 on the CPU with the default sim options,
+    as numpy arrays: q (knots + 2, nq), u, w, gamma, b, z and θ a knot."""
+    f64 = torch.float64
+    traj = pt.simulate(model, env, steps, h, torch.tensor([q1], dtype=f64),
+                       torch.tensor([v1], dtype=f64))
+    assert bool(pt.status(traj).all()), "the knots' simulate failed"
+    s = steps - knots
+    q, u, w = traj.q[0, s:], traj.u[0, s:], traj.w[0, s:]
+    return {"q": q, "u": u, "w": w, "gamma": traj.gamma[0, s:],
+            "b": traj.b[0, s:], "z": traj.z[0, s:],
+            "theta": pt.pack_theta(q[:-2], q[1:-1], u, w, model.mu_world, h)}
+
+
+def states_ref(name, h, device="cuda", dtype=torch.float32):
+    """The committed knots of a model that no path runs (KNOT_STATES) as a
+    ContactTraj of ``dtype`` on ``device``."""
+    with np.load(KNOT_STATES) as f:
+        t = {k: torch.as_tensor(f[f"{name}/{k}"], dtype=dtype, device=device)
+             for k in ContactTraj._fields if k not in ("h", "kappa")}
+    scalar = lambda x: torch.tensor(x, dtype=dtype, device=device)
+    return ContactTraj(h=scalar(h), kappa=scalar(0.0), **t)
+
+
+def kernel_phase(name, iters, shapes, shares, timed, tag,
+                 converged_only=True):
+    """The instantiation of ``name`` against its plain version on the knots
+    of ``phase_case(name)``: every problem of ``shapes`` (lanes, trials,
+    knots) after 1 and 3 iterations, shares of the first shape after
+    ``iters``, the prologue, and times and bounds of the ``timed`` shapes.
+    Returns (largest |Δz|, {(N, K): (kernel ms, plain ms, bound ms, bound
+    by)})."""
+    model, env, ref, kappa, opts, _ = phase_case(name)
     dims = dims_of(model, env)
-    ref = from_gait(model, env, gait, kappa=kappa,
-                    update_friction=update_friction, dtype=torch.float32,
-                    device="cuda")
     lin = linearize_trajectory(model, env, ref, kappa)
     rng = np.random.default_rng(0)
 
@@ -590,6 +733,232 @@ def centroidal_path(dev, tag):
     return launches
 
 
+def flamingo_options(kappa):
+    """examples/flamingo_slope.py's knot options; float32 adaptive sim
+    options (path D's); its Newton options with fixed 8-iteration knot
+    solves (the kernel's form)."""
+    mpc_ip = IPOptions(r_tol=1e-8, kappa_tol=kappa, max_iter=100,
+                       undercut=5.0, gamma_reg=0.1, diff_sol=True, max_ls=3)
+    sim_opts = IPOptions(r_tol=1e-3, kappa_tol=1e-5, max_iter=40,
+                         undercut=float("inf"), max_ls=6, refine=1)
+    return mpc_ip, sim_opts, NewtonOptions(r_tol=3e-4, max_iter=5,
+                                           fixed_ip_iters=8)
+
+
+def hopper3d_knot_options(kappa):
+    """tests/test_mpc_hopper_3d.py's knot options (3D_flat.jl:73-80)."""
+    return IPOptions(r_tol=1e-4, kappa_tol=kappa, max_iter=100, undercut=5.0,
+                     gamma_reg=0.1, diff_sol=True)
+
+
+def phase_case(name, device="cuda", dtype=torch.float32):
+    """What the kernel phase of the instantiation ``name`` compares on:
+    (model, terrain, reference on ``device``, κ, knot options, K knots a
+    path's horizon). A path's model takes the path's gait and options; a
+    model no path runs its committed knot states (``PATHLESS``)."""
+    pathless = {row[0]: row for row in PATHLESS}
+    if name in pathless:
+        _, env, _, _, h, _, k, kappa, _ = pathless[name]
+        return (MODELS[name], env, states_ref(name, h, device, dtype), kappa,
+                default_mpc_ip_options(kappa, max_iter=30), k)
+    model = MODELS[name]
+
+    def gait(env, gait_name, **kw):
+        return from_gait(model, env, load_gait(name, gait_name), dtype=dtype,
+                         device=device, **kw)
+
+    if name == "quadruped":
+        cfg = HotPathConfig()
+        return (model, flat_2d_lc, gait(flat_2d_lc, "gait2",
+                                         update_friction=True),
+                cfg.kappa_mpc, cfg.mpc_ip_options(), cfg.h_mpc - 1)
+    if name == "hopper_2D":
+        return (model, flat_2d_lc, gait(flat_2d_lc, "gait_in_place",
+                                        kappa=1.0e-4),
+                1.0e-4, default_mpc_ip_options(1.0e-4), 10)
+    if name == "centroidal_quadruped":
+        return (model, flat_3d_lc, gait(flat_3d_lc, "inplace_trot_v2",
+                                        update_friction=True),
+                2.0e-4, centroidal_options(2.0e-4)[0], 10)
+    if name == "flamingo":
+        return (model, flat_2d_lc, gait(flat_2d_lc, "gait_forward_36_4"),
+                2.0e-4, flamingo_options(2.0e-4)[0], 15)
+    if name == "hopper_3D":
+        return (model, flat_3d_lc, gait(flat_3d_lc, "gait_forward",
+                                        kappa=1.0e-4),
+                1.0e-4, hopper3d_knot_options(1.0e-4), 20)
+    raise ValueError(f"no kernel phase for {name!r}")
+
+
+def lanes_of(q1, v1, asset):
+    """The 16 lanes of ``asset``: q1 + the committed offsets, v1 each."""
+    with np.load(asset) as f:
+        offsets = torch.as_tensor(f["offsets"], dtype=q1.dtype,
+                                  device=q1.device)
+    q1s = q1[None, :] + offsets
+    return q1s, v1.expand_as(q1s).contiguous()
+
+
+def flamingo_rollout(dev):
+    """Path E's rollout, examples/flamingo_slope.py's configuration as
+    tests/test_mpc_flamingo_slope.py checks it: (roll, ref, n_sample,
+    sim_env, lanes) with ``roll(n_steps)`` the ``mpc_rollout`` (direct-mode
+    Newton in configuration mode, the controller on flat_2d_lc, the physics
+    on slope_smooth_2d_lc, altitude update at 0.02, warm-start floor 1e-2,
+    fixed 8-iteration knot solves) of the 16 lanes of ``FLAMINGO_OFFSETS``.
+    The sim solves are float32 adaptive ones (r_tol 1e-3, κ_tol 1e-5, 40
+    iterations): the example's 1e-8 is out of float32's reach."""
+    model, env, sim_env = flamingo, flat_2d_lc, slope_smooth_2d_lc
+    dims = dims_of(model, env)
+    dtype = torch.float32
+    n_sample, h_mpc, kappa = 5, 15, 2.0e-4
+    ref = from_gait(model, env, load_gait("flamingo", "gait_forward_36_4"),
+                    dtype=dtype, device=dev)
+    # slope.jl:31-36
+    obj = tracking_velocity_objective(
+        dims, h_mpc,
+        v=1e-3 * np.array([1e0, 1, 1e4, 1, 1, 1, 1, 1e4, 1e4]),
+        q=1e-1 * np.array([3e2, 1e-6, 3e2, 1, 1, 1, 1, 0.1, 0.1]),
+        u=3e-1 * np.array([0.1, 0.1, 0.3, 0.3, 2.0, 2.0]),
+        gamma=1e-100 * np.ones(dims.nc), b=1e-100 * np.ones(dims.nb),
+        dtype=dtype, device=dev)
+    mpc_ip, sim_opts, n_opts = flamingo_options(kappa)
+    q1s, v1s = lanes_of(*initial_conditions(ref), FLAMINGO_OFFSETS)
+
+    def roll(n_steps):
+        return mpc_rollout(model, env, ref, obj, n_steps, h_mpc, n_sample,
+                           kappa, CONFIGURATION, q1s, v1s, n_opts=n_opts,
+                           ip_opts=mpc_ip, sim_opts=sim_opts,
+                           warm_start_floor=1e-2,
+                           mpc_opts=CIMPCOptions(
+                               altitude_update=True,
+                               altitude_impact_threshold=0.02),
+                           sim_env=sim_env)
+
+    return roll, ref, n_sample, sim_env, q1s.shape[0]
+
+
+def hopper3d_rollout(dev):
+    """Path F's rollout, tests/test_mpc_hopper_3d.py's configuration
+    (examples/hopper3d_flat.py): (roll, ref, n_sample, lanes) with
+    ``roll(n_steps)`` ``simulate`` driven by ``ci_mpc_policy`` (direct-mode
+    Newton in configuration mode, gait_forward on flat_3d_lc, the test's
+    knot options, altitude update at 0.05, fixed 8-iteration knot solves)
+    of the 16 lanes of ``HOPPER3D_OFFSETS``. The sim solves are float32
+    adaptive ones (r_tol 1e-3, κ_tol 1e-5, 40 iterations) with the test's
+    line-search floor eps_min = 0.25."""
+    model, env = hopper_3d, flat_3d_lc
+    dims = dims_of(model, env)
+    dtype = torch.float32
+    n_sample, h_mpc, kappa = 10, 20, 1.0e-4
+    ref = from_gait(model, env, load_gait("hopper_3D", "gait_forward"),
+                    kappa=kappa, dtype=dtype, device=dev)
+    # 3D_flat.jl:38-42
+    obj = tracking_objective(
+        dims, h_mpc, q=1e-1 * np.array([3, 3, 0.1, 50, 50, 50, 10]),
+        u=np.array([0.1, 0.1, 10.0]), gamma=1e-100 * np.ones(dims.nc),
+        b=1e-100 * np.ones(dims.nb), dtype=dtype, device=dev)
+    mpc_ip = hopper3d_knot_options(kappa)
+    policy = pt.ci_mpc_policy(
+        model, env, ref, obj, h_mpc=h_mpc, n_sample=n_sample,
+        kappa_mpc=kappa, mode=CONFIGURATION,
+        n_opts=NewtonOptions(r_tol=3e-4, max_iter=5, fixed_ip_iters=8),
+        ip_opts=mpc_ip,
+        mpc_opts=CIMPCOptions(altitude_update=True,
+                              altitude_impact_threshold=0.05))
+    sim_opts = dataclasses.replace(default_sim_options(), r_tol=1e-3,
+                                   kappa_tol=1e-5, max_iter=40, eps_min=0.25)
+    q1s, v1s = lanes_of(*initial_conditions(ref), HOPPER3D_OFFSETS)
+    h_sim = float(ref.h) / n_sample
+
+    def roll(n_steps):
+        return pt.simulate(model, env, n_steps, h_sim, q1s, v1s,
+                           policy=policy, opts=sim_opts)
+
+    return roll, ref, n_sample, q1s.shape[0]
+
+
+def flamingo_path(dev, tag, steps):
+    """Path E: ``flamingo_rollout`` for ``steps`` sim steps with the health
+    tests/test_mpc_flamingo_slope.py checks; returns the launches. A period
+    costs minutes here (the flamingo's ``torch.func`` derivatives),
+    so E runs once, cold, with the spans on: they synchronise around each
+    span, which costs inside the run-to-run spread on a path bound by the
+    host's dispatch (PERF.md, PR 3)."""
+    roll, ref, n_sample, sim_env, lanes = flamingo_rollout(dev)
+    spans.start()
+    res, launches, wall = counted(lambda: roll(steps))
+    got = spans.stop()
+    check_outputs(res)
+    assert launches >= steps // n_sample, launches
+    ok = res.sim_converged.all(dim=1)
+    dx = res.q[:, -1, 0] - res.q[:, 1, 0]
+    clearance = (res.q[:, :, 1] - sim_env.surf(res.q[:, :, :1])).amin(dim=1)
+    angle = res.q[:, 2:, 2].abs().amax(dim=1)
+    print(f"path E (flamingo up the smooth slope, mpc_rollout direct): "
+          f"{lanes} lanes x {steps} steps in {wall:.2f} s = "
+          f"{lanes * steps / wall:.1f} lane-steps/s {tag}", flush=True)
+    print(f"path E: lanes that converged every step {int(ok.sum())}/{lanes} "
+          f"(JAX: {FLAMINGO_JAX_OK}/{lanes}), up the slope nominal "
+          f"{float(dx[0]):.4f} / least {float(dx.min()):.4f}, torso "
+          f"clearance nominal {float(clearance[0]):.4f} / least "
+          f"{float(clearance.min()):.4f}, largest |torso angle| nominal "
+          f"{float(angle[0]):.4f} / all {float(angle.max()):.4f}, mean "
+          f"Newton iterations {float(res.newton_iterations.float().mean()):.3f}"
+          f", mean sim iterations "
+          f"{float(res.sim_iterations.float().mean()):.3f}, knot_ip launches "
+          f"{launches} {tag}", flush=True)
+    print_spans("path E", f"{lanes} lanes x {steps} steps, the run above",
+                got, wall, tag)
+    assert bool(ok[0]), "nominal lane sim failed"
+    assert float(dx[0]) > 0.0, float(dx[0])
+    assert float(clearance[0]) > 0.4, float(clearance[0])
+    assert float(angle[0]) < 0.5, float(angle[0])
+    assert int(ok.sum()) >= FLAMINGO_JAX_OK - 1, ok.tolist()
+    return launches
+
+
+def hopper3d_path(dev, tag, steps):
+    """Path F: ``hopper3d_rollout`` for ``steps`` sim steps with the health
+    of tests/test_mpc_hopper_3d.py's forward-travel check; returns the
+    launches."""
+    roll, ref, n_sample, lanes = hopper3d_rollout(dev)
+    t0 = time.time()
+    roll(n_sample)
+    torch.cuda.synchronize()
+    print(f"path F: warm-up (1 period) {time.time() - t0:.2f} s {tag}",
+          flush=True)
+
+    traj, launches, wall = counted(lambda: roll(steps))
+    check_outputs(traj)
+    assert launches >= steps // n_sample, launches
+    ok = pt.status(traj)
+    travel = traj.q[:, -1, 0] - traj.q[:, 1, 0]
+    n_knots = steps // n_sample
+    half_stride = 0.5 * float(ref.q[n_knots, 0] - ref.q[0, 0])
+    errs = [float(e) for e in tracking_errors(
+        ref, traj.q[0], traj.u[0], traj.gamma[0], traj.b[0], n_sample,
+        idx_shift=(0,))]
+    print(f"path F (hopper_3d, simulate + ci_mpc_policy direct): {lanes} "
+          f"lanes x {steps} steps in {wall:.2f} s = "
+          f"{lanes * steps / wall:.1f} lane-steps/s {tag}", flush=True)
+    print(f"path F: lanes that converged every step {int(ok.sum())}/{lanes} "
+          f"(JAX: {HOPPER3D_JAX_OK}/{lanes}), forward travel nominal "
+          f"{float(travel[0]):.5f} (half the reference's stride "
+          f"{half_stride:.5f}), lanes past it "
+          f"{int((travel > half_stride).sum())}/{lanes}, nominal "
+          f"q/u/gamma/b errors {errs}, mean sim iterations "
+          f"{float(traj.iterations.float().mean()):.3f}, knot_ip launches "
+          f"{launches} {tag}", flush=True)
+    assert bool(ok[0]), "nominal lane sim failed"
+    assert float(travel[0]) > half_stride, (float(travel[0]), half_stride)
+    assert int(ok.sum()) >= HOPPER3D_JAX_OK - 1, ok.tolist()
+    got, span_wall = spanned(lambda: roll(n_sample))
+    print_spans("path F", f"{lanes} lanes x {n_sample} steps", got,
+                span_wall, tag)
+    return launches
+
+
 def main():
     # ---- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -610,93 +979,117 @@ def main():
 
     # ---- 3. the quadruped's instantiation ----------------------------------
     cfg = HotPathConfig()
-    opts, iters = cfg.mpc_ip_options(), cfg.fixed_ip_iters
     stages, trials = cfg.h_mpc - 1, cfg.newton_max_ls + 1
     knots = cfg.h_mpc
-    err_q, times_q = kernel_phase(
-        "quadruped", quadruped, load_gait("quadruped", "gait2"),
-        cfg.kappa_mpc, opts, iters,
+    phases = {}   # instantiation: (largest |Δz|, times, the path's (N, K))
+    err, times = kernel_phase(
+        "quadruped", cfg.fixed_ip_iters,
         shapes=[(16, trials, stages), (16, 1, stages), (1, 1, 3),
                 (256, trials, stages), (16, trials, knots), (16, 1, knots)],
         shares=QUADRUPED_SHARES,
         timed=[(16, 1, stages), (16, trials, stages), (256, trials, stages),
-               (16, 1, knots), (16, trials, knots)],
-        tag=tag, update_friction=True)
-    per_period = (times_q[(144, stages)][0]
-                  + cfg.newton_iters * times_q[(1008, stages)][0])
+               (16, 1, knots), (16, trials, knots)], tag=tag)
+    phases["quadruped"] = (err, times, (16 * trials * stages, stages))
+    per_period = (times[(144, stages)][0]
+                  + cfg.newton_iters * times[(1008, stages)][0])
     print(f"knot_ip per structure-mode control period (1 launch at N=144, "
           f"{cfg.newton_iters} at N=1008): {per_period:.4f} ms {tag}",
           flush=True)
 
-    # ---- 4. the hopper's instantiation, and a model without one -------------
-    h_opts = default_mpc_ip_options(1.0e-4)
-    err_h, times_h = kernel_phase(
-        "hopper_2d", hopper_2d, load_gait("hopper_2D", "gait_in_place"),
-        1.0e-4, h_opts, 8,
+    # ---- 4. the 2D hopper's, and dimensions the build does not hold --------
+    err, times = kernel_phase(
+        "hopper_2D", 8,
         shapes=[(16, 7, 10), (16, 1, 10), (1, 1, 3), (37, 7, 10)],
         shares=HOPPER_SHARES, timed=[(16, 1, 10), (16, 7, 10), (37, 7, 10)],
         tag=tag, converged_only=False)
-    particle = Dims(nq=2, nu=2, nw=2, nc=1, nf=2, ne=2)
+    phases["hopper_2D"] = (err, times, (1120, 10))
+    # the 2D particle on the nonlinear cone (ny 3): no model of the JAX
+    # package on a linearized-cone terrain gives these dimensions
+    nc_dims = dims_of(particle_2d, flat_2d_nc)
     zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+    nz, nt = nc_dims.nz, nc_dims.ntheta
     before = knot_ip.launches
     try:
-        knot_ip(particle, zeros(3, particle.nz), zeros(3, particle.ntheta),
-                zeros(3, particle.nz), zeros(3, particle.nz, particle.nz),
-                zeros(3, particle.nz, particle.ntheta), zeros(2, 3, 1),
-                zeros(2, 3, particle.ntheta), zeros(2, 3, 2), h_opts, 3)
+        knot_ip(nc_dims, zeros(3, nz), zeros(3, nt), zeros(3, nz),
+                zeros(3, nz, nz), zeros(3, nz, nt), zeros(2, 3, nc_dims.nc),
+                zeros(2, 3, nt), zeros(2, 3, nc_dims.nq),
+                default_mpc_ip_options(1.0e-4), 3)
     except RuntimeError as e:
         assert "unsupported dims" in str(e), e
-        print(f"a model without an instantiation raises: {e}", flush=True)
+        print(f"dimensions the build does not hold raise: {e}", flush=True)
     else:
-        raise AssertionError("a model without an instantiation did not raise")
+        raise AssertionError("dimensions the build does not hold did not "
+                             "raise")
     assert knot_ip.launches == before
 
-    # ---- 5. the centroidal quadruped's, a block a problem ---------------------
-    c_opts = centroidal_options(2.0e-4)[0]
-    err_c, times_c = kernel_phase(
-        "centroidal_quadruped", centroidal_quadruped,
-        load_gait("centroidal_quadruped", "inplace_trot_v2"), 2.0e-4, c_opts,
-        8, shapes=[(16, 7, 10), (16, 1, 10), (1, 1, 3), (64, 7, 10)],
-        shares=CENTROIDAL_SHARES,
-        timed=[(16, 1, 10), (16, 7, 10), (64, 7, 10)], tag=tag,
-        update_friction=True, env=flat_3d_lc)
+    # ---- 5-7. the block template: the centroidal quadruped's, the 3D
+    # hopper's (path F's H = 20); the flamingo's warp (path E's H = 15) -----
+    for name, k, shares, converged_only in (
+            ("centroidal_quadruped", 10, CENTROIDAL_SHARES, True),
+            ("flamingo", 15, SHARES["flamingo"], False),
+            ("hopper_3D", 20, SHARES["hopper_3D"], True)):
+        err, times = kernel_phase(
+            name, 8, shapes=[(16, 7, k), (16, 1, k), (1, 1, 3), (64, 7, k)],
+            shares=shares, timed=[(16, 1, k), (16, 7, k), (64, 7, k)],
+            tag=tag, converged_only=converged_only)
+        phases[name] = (err, times, (16 * 7 * k, k))
 
-    # ---- 6-10. the four paths, each with its spans ---------------------------
+    # ---- 8. the instantiations no path runs, N from their examples' H ---------
+    for name, _, _, _, _, _, k, *_ in PATHLESS:
+        err, times = kernel_phase(
+            name, 8, shapes=[(16, 7, k), (16, 1, k), (1, 1, 3)],
+            shares=SHARES[name], timed=[(16, 1, k), (16, 7, k)], tag=tag,
+            converged_only=False)
+        phases[name] = (err, times, (16 * 7 * k, k))
+
+    # ---- 9-15. the six paths, each with its spans ----------------------------
     launches = {
-        "A": quadruped_path("path A", cfg, 50, dev, tag),
+        "A": quadruped_path("path A", cfg, 25, dev, tag),
         "B": hopper_path(dev, tag),
         "C": quadruped_path("path C", HotPathConfig(newton_mode="direct"),
                             25, dev, tag),
-        "D": centroidal_path(dev, tag)}
+        "D": centroidal_path(dev, tag),
+        "E": flamingo_path(dev, tag, 10),
+        "F": hopper3d_path(dev, tag, 100)}
+    paths_of = {"quadruped": "AC", "hopper_2D": "B",
+                "centroidal_quadruped": "D", "flamingo": "E",
+                "hopper_3D": "F"}
 
-    bounds = [{"model": model, "n": n, "knots": k, "ms": t[0],
+    bounds = [{"model": name, "n": n, "knots": k, "ms": t[0],
                "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
                "share": t[2] / t[0]}
-              for model, times in (("quadruped", times_q),
-                                   ("hopper_2d", times_h),
-                                   ("centroidal_quadruped", times_c))
+              for name, (_, times, _) in phases.items()
               for (n, k), t in times.items()]
     print(json.dumps({"knot_ip_bound": bounds,
                       "peak_flops": knot_mod.PEAK_FLOPS,
                       "peak_bytes_per_s": knot_mod.PEAK_BYTES,
                       "card": name_power}))
-    main_q, main_h = times_q[(1008, stages)], times_h[(1120, 10)]
-    main_c = times_c[(1120, 10)]
+    instantiations = []
+    for table, template in ((knot_mod.KNOT_IP_MODELS, "warp"),
+                            (knot_mod.KNOT_IP_WIDE_MODELS, "block")):
+        for dims, models in table.items():
+            name = next(m for m in models if m in phases)
+            err, times, main_nk = phases[name]
+            t = times[main_nk]
+            paths = paths_of.get(name, "")
+            instantiations.append({
+                "dims": list(dims), "template": template,
+                "models": list(models), "n": main_nk[0], "knots": main_nk[1],
+                "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                "bound_ms": t[2], "bound_by": t[3], "share": t[2] / t[0],
+                "paths": list(paths),
+                "launches": sum(launches[p] for p in paths)})
+    main_q = phases["quadruped"][1][(1008, stages)]
     print(json.dumps({"kernels": [{
         "name": "knot_ip", "route": "cuda",
         "source": "contactimplicitmpc_tpu_torch/csrc/knot_ip.cu",
         "replaces": "contactimplicitmpc_tpu/ops/pallas_ip.py:310",
         "launches": sum(launches.values()),
-        "max_abs_err": max(err_q, err_h, err_c),
+        "max_abs_err": max(e for e, _, _ in phases.values()),
         "ms": main_q[0], "plain_ms": main_q[1], "bound_ms": main_q[2],
         "bound_by": main_q[3], "library_ms": None,
         "launches_by_path": launches,
-        "hopper_n": 1120, "hopper_ms": main_h[0],
-        "hopper_plain_ms": main_h[1], "hopper_bound_ms": main_h[2],
-        "hopper_bound_by": main_h[3],
-        "centroidal_n": 1120, "centroidal_ms": main_c[0],
-        "centroidal_plain_ms": main_c[1], "centroidal_bound_ms": main_c[2],
-        "centroidal_bound_by": main_c[3]}]}))
+        "instantiations": instantiations}]}))
     print(f"chip_smoke: every phase after the device check in "
           f"{time.time() - t_start:.1f} s {tag}", flush=True)
     print(card())

@@ -20,9 +20,15 @@ _torch.set_float32_matmul_precision("highest")
 
 from .device import default_device  # noqa: E402
 from .dims import Dims  # noqa: E402
-from .env import (Environment, environment_2d_flat,  # noqa: E402
+from .env import (ENVIRONMENTS, Environment,  # noqa: E402
+                  circular_bowl_3d_nc, environment_2d, environment_2d_flat,
                   environment_3d, environment_3d_flat, flat_2d_lc,
-                  flat_3d_lc, slope1_2d_lc)
+                  flat_2d_nc, flat_3d_lc, flat_3d_nc, piecewise1_2d_lc,
+                  piecewise2_2d_lc, quadratic_bowl_3d_lc,
+                  quadratic_bowl_3d_nc, sine1_2d_lc, sine1_3d_lc,
+                  sine2_2d_lc, sine2_3d_lc, sine3_2d_lc, sine3_3d_lc,
+                  slope1_2d_lc, slope_smooth_2d_lc, smoothed_stairs_2d_lc,
+                  stairs3_2d_lc)
 from .models.base import Model, dims_of, dynamics  # noqa: E402
 from .sim.interior_point import (IPOptions, IPResult, ip_solve,  # noqa: E402
                                  z_initialize, z_warmstart)

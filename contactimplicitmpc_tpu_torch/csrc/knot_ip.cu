@@ -59,17 +59,20 @@
 //   registers, the matrices read as broadcasts from shared memory, and
 //   stores dz[i][c] beside its neighbours'. The columns past 32, where a
 //   model has them, go through the side-by-side solve.
-// - One instantiation a model, listed in KNOT_IP_MODELS below. The template
-//   takes any dimensions that meet struct Lay's assertions (NY a multiple of
-//   4 and at most 16, NX <= NY, at most 32 equality rows, at most 34
-//   columns of theta); lanes past NY, 2 NY, NE, NV or NT idle.
+// - One instantiation for each set of dimensions of a model of the JAX
+//   package, listed in KNOT_IP_MODELS below (the quadruped, the 2D hopper,
+//   the flamingo, the 2D particle, the pushbot, the walled cartpole). The
+//   template takes any dimensions that meet struct Lay's assertions (NY a
+//   multiple of 4 and at most 16, NX <= NY, at most 32 equality rows, at
+//   most 34 columns of theta); lanes past NY, 2 NY, NE, NV or NT idle.
 // - Past those assertions (the 3D models: the centroidal quadruped's knot
 //   has 42 equality rows, a 24 x 24 Schur complement and 53 columns of
-//   theta), a second template, knot_ip_wide_kernel, gives a problem a block
-//   of 2 to 4 warps; its design is set out where it begins, and its models
-//   are listed in KNOT_IP_WIDE_MODELS. At the centroidal dimensions (8
-//   iterations, 1 refinement pass) a problem needs ~1.44 Mflop, 3.0x the
-//   quadruped's: the bound is ~0.024 ms at N = 1120.
+//   theta; the 3D particle's and hopper's NY of 6 is no multiple of 4), a
+//   second template, knot_ip_wide_kernel, gives a problem a block of 2 to 4
+//   warps; its design is set out where it begins, and its models are listed
+//   in KNOT_IP_WIDE_MODELS. At the centroidal dimensions (8 iterations, 1
+//   refinement pass) a problem needs ~1.44 Mflop, 3.0x the quadruped's: the
+//   bound is ~0.024 ms at N = 1120.
 // These reorderings stay inside the float32 spread of two correct solves:
 // after 1 and 3 iterations every problem agrees with the plain version to
 // ~1e-5 in z (chip_smoke.py and tests/test_torch_cuda.py hold 1e-4).
@@ -1361,17 +1364,25 @@ int launch_wide(const Params& p, cudaStream_t stream) {
 }
 
 // The models this build holds, one line each: (nx, ny, ntheta, nc) of the
-// model on its terrain (dims.py). Every entry point below dispatches over
-// both tables: KNOT_IP_MODELS for problems a warp holds (struct Lay),
+// model on its flat terrain (dims.py), and every model of the JAX package
+// that gives those dimensions. Every entry point below dispatches over both
+// tables: KNOT_IP_MODELS for problems a warp holds (struct Lay),
 // KNOT_IP_WIDE_MODELS for those past it (struct WLay, a block a problem).
-// WLay also takes hopper_3d's (7, 6, 22, 1) and the centroidal wall's
-// (18, 48, 53, 8).
-#define KNOT_IP_MODELS(X)                                     \
-  X(11, 16, 34, 4) /* quadruped on flat_2d_lc */              \
-  X(4, 4, 14, 1)   /* hopper_2d on flat_2d_lc */
-#define KNOT_IP_WIDE_MODELS(X)                                \
-  X(18, 24, 53, 4) /* centroidal_quadruped (+ _undamped, _box), \
-                      point_foot_quadruped on flat_3d_lc */
+// ops/knot_ip.py mirrors both tables (KNOT_IP_MODELS, KNOT_IP_WIDE_MODELS)
+// and a test holds the mirror to these lines.
+#define KNOT_IP_MODELS(X)                                               \
+  X(11, 16, 34, 4) /* quadruped, quadruped_payload */                   \
+  X(4, 4, 14, 1)   /* hopper_2d */                                      \
+  X(9, 16, 28, 4)  /* flamingo */                                       \
+  X(2, 4, 10, 1)   /* particle_2d */                                    \
+  X(2, 8, 10, 2)   /* pushbot */                                        \
+  X(4, 8, 15, 2)   /* walledcartpole */
+#define KNOT_IP_WIDE_MODELS(X)                                          \
+  X(18, 24, 53, 4) /* centroidal_quadruped (+ _undamped, _box),         \
+                      point_foot_quadruped */                           \
+  X(3, 6, 14, 1)   /* particle (ny % 4 != 0) */                         \
+  X(7, 6, 22, 1)   /* hopper_3d */                                      \
+  X(18, 48, 53, 8) /* centroidal_quadruped_wall (+ _slanted) */
 
 }  // namespace
 

@@ -174,3 +174,4 @@ def initial_configuration(model: Quadruped, theta0, theta1, theta2, theta3,
 
 
 quadruped = Quadruped()
+quadruped_payload = Quadruped(m_payload=3.0, j_payload=0.03)

@@ -56,8 +56,16 @@ def knot_blocks(dims: Dims, rz0) -> KnotBlocks:
 
 def linearized_ip_fixed(dims: Dims, z0_lin, theta0, r0, rz0, rtheta0,
                         alt, theta, q2_init, opts: IPOptions,
-                        iters: int = 10) -> FixedIPResult:
-    """Solve pre-linearized knots with ``iters`` masked IP iterations."""
+                        iters: int = 10,
+                        affine_merit: bool = False) -> FixedIPResult:
+    """Solve pre-linearized knots with ``iters`` masked IP iterations.
+
+    ``affine_merit`` takes the line search's equality rows at a candidate
+    as r − α (Rza d), the CUDA kernel's form, in place of the residual
+    evaluated at the candidate (JAX's form): the same function in exact
+    arithmetic; in float32, where the residual sits at its floor, the two
+    forms pick other candidates (tools/knot_ip_spread.py measures how far
+    that parts two solves)."""
     dtype = theta.dtype
     nx, ny, nq, nz = dims.nx, dims.ny, dims.nq, dims.nz
     ne = nx + ny
@@ -165,7 +173,16 @@ def linearized_ip_fixed(dims: Dims, z0_lin, theta0, r0, rz0, rtheta0,
             n_ls, dim=-2)                                           # (..., C, nz)
         merit0 = torch.sum(r_center ** 2, dim=-1)
         z_c = z[..., None, :] - alphas[..., None] * dirs
-        merits = torch.sum(residual(z_c, kappa_t[..., None]) ** 2, dim=-1)
+        if affine_merit:
+            jd = torch.stack([mv(rz_aff, d_cor), mv(rz_aff, d_cen)],
+                             dim=-2).repeat_interleave(n_ls, dim=-2)
+            eq = r_center[..., None, :ne] - alphas[..., None] * jd
+            bil = z_c[..., nx:ne] * z_c[..., ne:] - kappa_t[..., None, None]
+            merits = (torch.sum(eq ** 2, dim=-1)
+                      + torch.sum(bil ** 2, dim=-1))
+        else:
+            merits = torch.sum(residual(z_c, kappa_t[..., None]) ** 2,
+                               dim=-1)
         ok = merits < (1.0 - 1.0e-3 * alphas) * merit0[..., None]
         pick = torch.where(ok.any(dim=-1), ok.to(torch.int8).argmax(dim=-1),
                            merits.argmin(dim=-1))

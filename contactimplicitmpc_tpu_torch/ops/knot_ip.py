@@ -16,7 +16,10 @@ that packs each knot's constants (``pack_knots``; its plain version
 ``pack_knots_plain`` and the layout ``pack_layout`` are here), then the
 solve, whose blocks each read one knot's packed block. The kernel has two
 templates: a warp a problem where the knot fits a warp, a block a problem
-past it (the 3D models); ``warp_template`` says which one takes a model.
+past it (the 3D models); ``warp_template`` says which one takes a model,
+and ``KNOT_IP_MODELS``/``KNOT_IP_WIDE_MODELS`` list what the build holds:
+every model of the JAX package. Dimensions in neither table raise on CUDA
+tensors.
 
 ``work`` counts the operations and bytes of a call, and ``bound_ms`` turns
 them into the kernel's bound on an H100.
@@ -124,10 +127,37 @@ class PackLayout(NamedTuple):
     size: int
 
 
+# The instantiations the build holds, mirroring the two tables of
+# csrc/knot_ip.cu (a test parses them and holds them to these):
+# (nx, ny, ntheta, nc) on the model's flat terrain → the models of the JAX
+# package that give those dimensions.
+KNOT_IP_MODELS = {          # struct Lay, a warp a problem
+    (11, 16, 34, 4): ("quadruped", "quadruped_payload"),
+    (4, 4, 14, 1): ("hopper_2D",),
+    (9, 16, 28, 4): ("flamingo",),
+    (2, 4, 10, 1): ("particle_2D",),
+    (2, 8, 10, 2): ("pushbot",),
+    (4, 8, 15, 2): ("walledcartpole",),
+}
+KNOT_IP_WIDE_MODELS = {     # struct WLay, a block a problem
+    (18, 24, 53, 4): ("centroidal_quadruped", "centroidal_quadruped_undamped",
+                      "centroidal_quadruped_box", "point_foot_quadruped"),
+    (3, 6, 14, 1): ("particle",),
+    (7, 6, 22, 1): ("hopper_3D",),
+    (18, 48, 53, 8): ("centroidal_quadruped_wall",
+                      "centroidal_quadruped_wall_slanted"),
+}
+
+
 def warp_template(dims: Dims) -> bool:
     """Whether the kernel takes ``dims`` with one warp a problem (``struct
     Lay``'s assertions); past them it takes a block a problem (``struct
-    WLay``), with a layout of its own."""
+    WLay``), with a layout of its own. The warp template holds the
+    quadruped (and its payload variant), the 2D hopper, the flamingo, the
+    2D particle, the pushbot and the walled cartpole; the block template
+    the centroidal quadruped family and the point-foot quadruped, the 3D
+    particle, the 3D hopper and the centroidal quadruped at the wall
+    (``KNOT_IP_MODELS``, ``KNOT_IP_WIDE_MODELS``)."""
     nx, ny = dims.nx, dims.ny
     return (ny % 4 == 0 and 2 * ny <= 32 and nx <= ny and nx + ny <= 32
             and dims.ntheta <= 34)

@@ -358,9 +358,11 @@ def test_quadruped_kernel_at_ten_knots(card):
 
 @pytest.mark.cuda
 def test_model_without_instantiation_raises(card):
-    """Dimensions the build does not hold (the 2D particle's here) raise on
-    CUDA tensors: no fallback to the plain version."""
-    dims = Dims(nq=2, nu=2, nw=2, nc=1, nf=2, ne=2)
+    """Dimensions the build does not hold raise on CUDA tensors: no
+    fallback to the plain version. Every model of the JAX package on a
+    linearized-cone terrain has its instantiation; the 2D particle on the
+    nonlinear cone (ny 3) has none."""
+    dims = Dims(nq=2, nu=2, nw=2, nc=1, nf=1, ne=2)
     nz, nt = dims.nz, dims.ntheta
     zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=card)
     args = [zeros(3, nz), zeros(3, nt), zeros(3, nz), zeros(3, nz, nz),
@@ -513,3 +515,84 @@ def test_centroidal_prologue_packs_knot_constants(card):
         else:
             assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
     assert bool((got[want == 0] == 0).all())
+
+
+# ---- the instantiations every other model needs ------------------------------
+
+def _chip_smoke():
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def new_problems(name, device, lanes, trials):
+    """(dims, options, problems) of chip_smoke.py's phase for ``name``: its
+    knots (the path's gait, or the committed knot states of a model no path
+    runs), (lanes, trials, K) problems with θ perturbed as
+    ``knot_problems`` perturbs the quadruped's."""
+    cs = _chip_smoke()
+    model, env, ref, kappa, opts, k = cs.phase_case(name, device=device)
+    dims = dims_of(model, env)
+    lin = linearize_trajectory(model, env, ref, kappa)
+    knots, alt, th, q2 = cs.knot_problems(lin, ref, lanes, trials, k,
+                                          np.random.default_rng(0), dims)
+    return dims, opts, knots + [alt, th, q2]
+
+
+NEW = ["flamingo", "hopper_3D", "pushbot", "walledcartpole", "particle_2D",
+       "particle", "centroidal_quadruped_wall"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NEW)
+@pytest.mark.parametrize("iters", [1, 3])
+def test_new_instantiation_matches_plain_early(card, name, iters):
+    """Each instantiation this slice adds, at 16 lanes × 7 trials × its K
+    knots, after 1 and 3 iterations: every problem to 1e-4 in z and 1e-3
+    of its scale in dz, the same converged flags, one launch."""
+    dims, opts, problems = new_problems(name, card, 16, 7)
+    before = knot_ip.launches
+    out = knot_ip(dims, *problems, opts, iters)
+    want = linearized_ip_fixed(dims, *problems, opts, iters)
+    torch.cuda.synchronize()
+    assert knot_ip.launches == before + 1
+    assert torch.isfinite(out.z).all() and torch.isfinite(out.dz).all()
+    assert float((out.z - want.z).abs().max()) < 1e-4
+    assert float(dz_rel(out, want).max()) < 1e-3
+    assert bool((out.converged == want.converged).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NEW)
+def test_new_prologue_packs_knot_constants(card, name):
+    """Each new instantiation's prologue against the plain packing at its
+    own layout: copies exact, the products and the inverse to 1e-5 of each
+    block's largest entry, zeros elsewhere."""
+    dims, _, problems = new_problems(name, card, 1, 1)
+    knots = problems[:5]
+    got = knot_mod.pack_knots(dims, *knots)
+    want = knot_mod.pack_knots_plain(dims, *knots)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    exact = {"rza", "dy1", "ry1d", "ry2", "z0", "r0", "theta0", "rtheta0"}
+    blocks = knot_mod.pack_blocks(dims, want)
+    for key, a in knot_mod.pack_blocks(dims, got).items():
+        b = blocks[key]
+        if key in exact:
+            assert torch.equal(a, b), key
+        else:
+            scale = float(b.abs().max()) or 1.0
+            assert float((a - b).abs().max()) <= 1e-5 * scale, key
+    # zeros the kernel must keep: padding and the copies' (a computed entry
+    # may sum to a tiny value where the plain version's terms cancel)
+    zero = want == 0
+    for key, (off, rows, stride, cols) in knot_mod.pack_layout(
+            dims).blocks.items():
+        if key not in exact:
+            for row in range(rows):
+                zero[:, off + row * stride:off + row * stride + cols] = False
+    assert bool((got[zero] == 0).all())

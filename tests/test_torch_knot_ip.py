@@ -10,6 +10,8 @@ chip_smoke.py).
 """
 
 import dataclasses
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +35,7 @@ from contactimplicitmpc_tpu_torch.models.centroidal_quadruped import \
 from contactimplicitmpc_tpu_torch.models.quadruped import quadruped
 from contactimplicitmpc_tpu_torch.ops.fixed_ip import (knot_blocks,
                                                        linearized_ip_fixed)
+from contactimplicitmpc_tpu_torch.ops import knot_ip as knot_mod
 from contactimplicitmpc_tpu_torch.ops.knot_ip import (knot_ip, pack_blocks,
                                                       pack_knots,
                                                       pack_knots_plain,
@@ -392,3 +395,170 @@ def test_plain_packing_holds_fixed_ip_blocks(knots):
             used[off + row * stride + torch.as_tensor(slots)] = True
     assert not pack[:, ~used].any()
     assert int((~used).sum()) > 0
+
+
+# ---- every model's instantiation --------------------------------------------
+
+def _flat(model):
+    """The model's flat terrain: 3D where its contact points are."""
+    return (pt.flat_3d_lc if model.kinematics(torch.zeros(model.nq)).shape[-1]
+            == 3 else pt.flat_2d_lc)
+
+
+def _cu_table(name):
+    """The (nx, ny, ntheta, nc) lines of a table of csrc/knot_ip.cu."""
+    with open(knot_mod.SOURCE) as f:
+        src = f.read()
+    body = re.split(r"\n\s*\n|#define", src.split(f"#define {name}(X)", 1)[1],
+                    maxsplit=1)[0]
+    return [tuple(int(v) for v in m.groups()) for m in
+            re.finditer(r"X\((\d+), (\d+), (\d+), (\d+)\)", body)]
+
+
+def test_instantiation_tables_mirror_the_source():
+    """The two tables of csrc/knot_ip.cu list what ``KNOT_IP_MODELS`` and
+    ``KNOT_IP_WIDE_MODELS`` mirror, in order; every model of the registry,
+    on its flat terrain, has its dimensions in the table of the template
+    ``warp_template`` picks, under its name, and the ten are distinct."""
+    assert _cu_table("KNOT_IP_MODELS") == list(knot_mod.KNOT_IP_MODELS)
+    assert _cu_table("KNOT_IP_WIDE_MODELS") == \
+        list(knot_mod.KNOT_IP_WIDE_MODELS)
+    tables = {**knot_mod.KNOT_IP_MODELS, **knot_mod.KNOT_IP_WIDE_MODELS}
+    assert len(tables) == 10
+    listed = [m for models in tables.values() for m in models]
+    assert sorted(listed) == sorted(pt.models.MODELS)
+    for name, model in pt.models.MODELS.items():
+        dims = dims_of(model, _flat(model))
+        table = (knot_mod.KNOT_IP_MODELS if warp_template(dims)
+                 else knot_mod.KNOT_IP_WIDE_MODELS)
+        key = (dims.nx, dims.ny, dims.ntheta, dims.nc)
+        assert name in table.get(key, ()), (name, key)
+    # the nonlinear cone's dimensions (ny = 3) are in neither table
+    nc = dims_of(pt.models.particle_2d, pt.flat_2d_nc)
+    assert (nc.nx, nc.ny, nc.ntheta, nc.nc) not in tables
+
+
+def _chip_smoke():
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def new_knots(name):
+    """(dims, numpy inputs, options) for 2 lanes over the first 5 knots of
+    what chip_smoke.py gives the kernel for ``name`` (its path's gait, or
+    the committed knot states of a model no path runs), float64, θ
+    perturbed by 0.003·N(0, 1) from ``numpy.random.default_rng(0)``."""
+    model, env, ref, kappa, opts, _ = _chip_smoke().phase_case(
+        name, device="cpu", dtype=torch.float64)
+    opts = {k: v for k, v in dataclasses.asdict(opts).items()
+            if k in {f.name for f in dataclasses.fields(JIPOptions)}}
+    dims = dims_of(model, env)
+    lin = linearize_trajectory(model, env, ref, kappa)
+    k = 5
+    theta = ref.theta[:k].numpy() + 0.003 * np.random.default_rng(0) \
+        .standard_normal((2, k, dims.ntheta))
+    inputs = dict(z0_lin=lin.z0, theta0=lin.theta0, r0=lin.r0, rz0=lin.rz0,
+                  rtheta0=lin.rtheta0)
+    inputs = {key: v[:k].numpy() for key, v in inputs.items()}
+    inputs.update(alt=np.zeros((2, k, dims.nc)), theta=theta,
+                  q2_init=np.broadcast_to(ref.q[2:k + 2].numpy(),
+                                          (2, k, dims.nq)).copy())
+    return dims, inputs, opts
+
+
+NEW_DIMS = {"flamingo": (9, 16, 28, 4), "particle_2D": (2, 4, 10, 1),
+            "pushbot": (2, 8, 10, 2), "walledcartpole": (4, 8, 15, 2),
+            "particle": (3, 6, 14, 1), "hopper_3D": (7, 6, 22, 1),
+            "centroidal_quadruped_wall": (18, 48, 53, 8)}
+
+
+@pytest.mark.parametrize("name", list(NEW_DIMS))
+def test_plain_matches_jax_new_dims(name):
+    """The plain version at each set of dimensions this slice instantiates,
+    float64, 8 iterations, the options chip_smoke.py gives that
+    instantiation, against JAX's ``linearized_ip_fixed`` on 2 lanes × 5
+    knots: z, rvio, kvio and dz to 1e-8, identical converged flags."""
+    dims, inputs, opts = new_knots(name)
+    assert (dims.nx, dims.ny, dims.ntheta, dims.nc) == NEW_DIMS[name]
+    jd = JDims(**dataclasses.asdict(dims))
+    jopts = JIPOptions(**opts)
+    per_knot = jax.vmap(lambda *a: jax_fixed(jd, *a, jopts, iters=8))
+    out = jax.jit(jax.vmap(lambda a, th, q: per_knot(
+        *(jnp.asarray(inputs[key]) for key in ORDER[:5]), a, th, q)))(
+            *(jnp.asarray(inputs[key]) for key in ORDER[5:]))
+    want = {key: np.asarray(getattr(out, key)) for key in FIELDS}
+    got = run_port(dims, inputs, opts, 8, torch.float64)
+    np.testing.assert_array_equal(got["converged"], want["converged"])
+    for key in ("z", "rvio", "kvio", "dz"):
+        scale = max(1.0, float(np.abs(want[key]).max()))
+        np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                   atol=1e-8 * scale, err_msg=key)
+
+
+@pytest.mark.parametrize("name", ["particle", "hopper_3D",
+                                  "centroidal_quadruped_wall"])
+def test_plain_packing_of_new_wide_knots(name):
+    """The block-a-problem layout (``struct WLay``) at the three sets of
+    dimensions this slice adds to it: no slot padding, rows at an odd
+    stride, every block at its place, zeros elsewhere, the size a multiple
+    of 16 bytes."""
+    dims, inputs, _ = new_knots(name)
+    assert not warp_template(dims)
+    t = [torch.as_tensor(inputs[k], dtype=torch.float32) for k in ORDER[:5]]
+    z0, theta0, r0, rz0, rtheta0 = t
+    lay = pack_layout(dims)
+    assert lay.slots == tuple(range(dims.nz)) and lay.size % 4 == 0
+    assert all(stride % 2 == 1 for _, rows, stride, _ in lay.blocks.values()
+               if rows > 1)
+    pack = pack_knots_plain(dims, *t)
+    assert torch.equal(pack_knots(dims, *t), pack)
+    ne = dims.nx + dims.ny
+    b = knot_blocks(dims, rz0)
+    diag = lambda m: torch.diagonal(m, dim1=-2, dim2=-1)
+    want = {"rza": rz0[:, :ne], "dxi": b.dxi, "dy1": b.dy1, "cai": b.cai,
+            "sb": b.ry1 - b.caib, "ry1d": diag(b.ry1), "caibd": diag(b.caib),
+            "ry2": b.ry2, "z0": z0, "r0": r0[:, :ne], "theta0": theta0,
+            "rtheta0": rtheta0.reshape(len(z0), -1)}
+    got = pack_blocks(dims, pack)
+    assert list(got) == list(want)
+    used = torch.zeros(lay.size, dtype=torch.bool)
+    for key, (off, rows, stride, cols) in lay.blocks.items():
+        assert torch.equal(got[key], want[key].reshape(got[key].shape)), key
+        for row in range(rows):
+            used[off + row * stride:off + row * stride + cols] = True
+    assert bool((pack[:, ~used] == 0).all())
+
+
+@pytest.mark.parametrize("name", ["quadruped", "flamingo"])
+def test_affine_merit_form_matches_jax_float64(name, knots):
+    """The plain version with the line search's equality rows in the
+    kernel's form (``affine_merit``: r − α Rza d) is the same function: in
+    float64, 8 iterations, z, rvio, kvio and dz to 1e-8 of JAX's, flags
+    equal (the quadruped's gait2 knots at the main path's options; the
+    flamingo's 2 lanes × 5 knots at its path's)."""
+    if name == "quadruped":
+        dims, inputs = knots
+        opts = MAIN
+        want = run_jax(dims, inputs, opts, 8, jnp.float64)
+    else:
+        dims, inputs, opts = new_knots(name)
+        jd = JDims(**dataclasses.asdict(dims))
+        per_knot = jax.vmap(lambda *a: jax_fixed(jd, *a, JIPOptions(**opts),
+                                                 iters=8))
+        out = jax.jit(jax.vmap(lambda a, th, q: per_knot(
+            *(jnp.asarray(inputs[key]) for key in ORDER[:5]), a, th, q)))(
+                *(jnp.asarray(inputs[key]) for key in ORDER[5:]))
+        want = {key: np.asarray(getattr(out, key)) for key in FIELDS}
+    out = linearized_ip_fixed(
+        dims, *(torch.as_tensor(inputs[k], dtype=torch.float64)
+                for k in ORDER), IPOptions(**opts), 8, affine_merit=True)
+    got = {k: getattr(out, k).numpy() for k in FIELDS}
+    np.testing.assert_array_equal(got["converged"], want["converged"])
+    for key in ("z", "rvio", "kvio", "dz"):
+        scale = max(1.0, float(np.abs(want[key]).max()))
+        np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                   atol=1e-8 * scale, err_msg=key)

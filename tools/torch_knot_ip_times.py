@@ -3,7 +3,7 @@ alone or in turns with the kernel the port had first.
 
     python3 tools/torch_knot_ip_times.py
         [--old path/to/the/first/knot_ip.cu] [--lanes 16,112,1792]
-    python3 tools/torch_knot_ip_times.py --model centroidal_quadruped
+    python3 tools/torch_knot_ip_times.py --model MODEL
 
 Builds ``contactimplicitmpc_tpu_torch/csrc/knot_ip.cu``, prints what ptxas
 says of it, and times it on the gait2 knots with CUDA events (the launches
@@ -21,12 +21,14 @@ turns (old, new, new, old) in this one process on this one card. To compare
 two sources of today's interface, run the tool from a copy of the tree for
 each within one job on one card.
 
-``--model centroidal_quadruped`` times the block-a-problem template
-(``struct WLay``) on the in-place trot's first 10 knots with
-examples/centroidal_trot.py's float32 knot options, at N = 16 × 1 × 10,
-16 × 7 × 10 and 64 × 7 × 10 (path D's two shapes and a large batch), with
-0 iterations (the prologue, the final factorization and the sensitivity
-solve alone) and with path D's 8.
+``--model MODEL`` times the instantiation of another model of
+``chip_smoke.phase_case`` (hopper_2D, centroidal_quadruped, flamingo,
+hopper_3D, pushbot, walledcartpole, particle_2D, particle,
+centroidal_quadruped_wall) on the knots chip_smoke.py compares it on, with
+that phase's options, at N = 16 × 1 × K, 16 × 7 × K and 64 × 7 × K (a
+path's two shapes over its K knots and a large batch), with 0 iterations
+(the prologue, the final factorization and the sensitivity solve alone)
+and with the paths' 8.
 
 Every line of times carries the card's name and power limit, and the
 kernel's bound from ``ops/knot_ip.py::bound_ms``.
@@ -43,17 +45,15 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (card, centroidal_options, cuda_ms,  # noqa: E402
-                        knot_problems)
+from chip_smoke import (card, cuda_ms, knot_problems,  # noqa: E402
+                        phase_case)
 from contactimplicitmpc_tpu_torch.control.linearized import \
     linearize_trajectory  # noqa: E402
 from contactimplicitmpc_tpu_torch.control.trajectory import \
     from_gait  # noqa: E402
-from contactimplicitmpc_tpu_torch.env import flat_2d_lc, flat_3d_lc  # noqa: E402
+from contactimplicitmpc_tpu_torch.env import flat_2d_lc  # noqa: E402
 from contactimplicitmpc_tpu_torch.hotpath import HotPathConfig  # noqa: E402
 from contactimplicitmpc_tpu_torch.models.base import dims_of  # noqa: E402
-from contactimplicitmpc_tpu_torch.models.centroidal_quadruped import \
-    centroidal_quadruped  # noqa: E402
 from contactimplicitmpc_tpu_torch.models.quadruped import \
     quadruped  # noqa: E402
 from contactimplicitmpc_tpu_torch.ops import knot_ip as knot_mod  # noqa: E402
@@ -96,27 +96,23 @@ def old_call(fn, dims, knots, alt, th, q2, opts, iters):
     return call
 
 
-def centroidal_times(args, tag):
-    """The wide template at the centroidal quadruped's dimensions."""
+def model_times(args, tag):
+    """Another instantiation on the knots of its kernel phase."""
     print("build:", knot_mod.build(verbose=True), flush=True)
-    kappa = 2.0e-4
-    opts = centroidal_options(kappa)[0]
-    dims = dims_of(centroidal_quadruped, flat_3d_lc)
-    ref = from_gait(centroidal_quadruped, flat_3d_lc,
-                    load_gait("centroidal_quadruped", "inplace_trot_v2"),
-                    update_friction=True, dtype=torch.float32, device="cuda")
-    lin = linearize_trajectory(centroidal_quadruped, flat_3d_lc, ref, kappa)
+    model, env, ref, kappa, opts, k = phase_case(args.model)
+    dims = dims_of(model, env)
+    lin = linearize_trajectory(model, env, ref, kappa)
     rng = np.random.default_rng(0)
     for lanes, trials in ((16, 1), (16, 7), (64, 7)):
-        n = lanes * trials * 10
-        knots, alt, th, q2 = knot_problems(lin, ref, lanes, trials, 10, rng,
+        n = lanes * trials * k
+        knots, alt, th, q2 = knot_problems(lin, ref, lanes, trials, k, rng,
                                            dims)
         for iters in (0, 8):
             ms = cuda_ms(lambda: knot_mod.knot_ip(dims, *knots, alt, th, q2,
                                                   opts, iters),
                          args.reps, spin=True)
-            bound, which = knot_mod.bound_ms(dims, n, 10, iters, opts)
-            print(f"knot_ip centroidal_quadruped N={n} iters={iters}: "
+            bound, which = knot_mod.bound_ms(dims, n, k, iters, opts)
+            print(f"knot_ip {args.model} N={n} K={k} iters={iters}: "
                   f"{ms:.4f} ms, bound {bound:.5f} ms by {which} {tag}",
                   flush=True)
 
@@ -126,15 +122,14 @@ def main():
     ap.add_argument("--old", default=None)
     ap.add_argument("--lanes", default="16,112,1792")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--model", default="quadruped",
-                    choices=["quadruped", "centroidal_quadruped"])
+    ap.add_argument("--model", default="quadruped")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     tag = f"[{card()}]"
     print(tag, flush=True)
-    if args.model == "centroidal_quadruped":
-        return centroidal_times(args, tag)
+    if args.model != "quadruped":
+        return model_times(args, tag)
     print("build:", knot_mod.build(verbose=True), flush=True)
     old = load_old(args.old) if args.old else None
 

@@ -1,12 +1,15 @@
-"""Where one control period of each of chip_smoke.py's four paths spends
+"""Where one control period of each of chip_smoke.py's six paths spends
 the device's time, on the GPU.
 
     python3 tools/torch_profile_paths.py
 
 For path A (quadruped, structure-mode Newton), path B (2D hopper,
 ``simulate`` + ``ci_mpc_policy``, direct-mode Newton), path C (quadruped,
-direct-mode Newton) and path D (centroidal quadruped, ``mpc_rollout``
-direct), 16 lanes each: warm up one period, time one period
+direct-mode Newton), path D (centroidal quadruped, ``mpc_rollout``
+direct), path E (flamingo up the smooth slope, ``mpc_rollout`` direct) and
+path F (3D hopper, ``simulate`` + ``ci_mpc_policy`` direct), 16 lanes each,
+a period N_sample sim steps (5; the 3D hopper's 10): warm up one period,
+time one period
 on the host clock without a profiler, then run one period under
 ``torch.profiler`` and print one JSON line a path: the unprofiled wall, the
 device's busy time (the sum of every kernel's self time) and its share of
@@ -51,6 +54,8 @@ def main():
         timeout=60).stdout.strip().splitlines()[0]
     hopper_roll, _, n_sample, _ = chip_smoke.hopper_rollout(dev)
     centroidal_roll, _, n_sample_d, _ = chip_smoke.centroidal_rollout(dev)
+    flamingo_roll, _, n_sample_e, _, _ = chip_smoke.flamingo_rollout(dev)
+    hopper3d_roll, _, n_sample_f, _ = chip_smoke.hopper3d_rollout(dev)
     paths = {
         "A quadruped structure": quadruped_period(HotPathConfig(), dev),
         "B hopper_2d simulate+ci_mpc_policy direct":
@@ -58,7 +63,12 @@ def main():
         "C quadruped direct": quadruped_period(
             HotPathConfig(newton_mode="direct"), dev),
         "D centroidal_quadruped mpc_rollout direct":
-            lambda: centroidal_roll(n_sample_d)}
+            lambda: centroidal_roll(n_sample_d),
+        "E flamingo mpc_rollout direct, slope":
+            lambda: flamingo_roll(n_sample_e),
+        "F hopper_3d simulate+ci_mpc_policy direct":
+            lambda: hopper3d_roll(n_sample_f)}
+    steps = {"E": n_sample_e, "F": n_sample_f}
     for name, period in paths.items():
         period()
         torch.cuda.synchronize()
@@ -76,7 +86,8 @@ def main():
                 if re.search(r"knot_(ip|pack)(_wide)?_kernel", e.key)]
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
         print(json.dumps({
-            "path": name, "card": card, "lanes": 16, "steps": 5,
+            "path": name, "card": card, "lanes": 16,
+            "steps": steps.get(name[0], 5),
             "wall_s": wall, "device_busy_s": busy,
             "device_busy_share_of_wall": busy / wall,
             "kernels_launched": sum(e.count for e in kernels),
