@@ -48,8 +48,8 @@ Phases (any failure raises and the script exits non-zero):
    (``PATHLESS``, committed by tools/knot_states.py), N = 16 × 7 × K,
    16 × 1 × K and 3;
 7. path A — the flat-ground quadruped closed-loop MPC rollout at the
-   HotPathConfig defaults (structure-mode Newton), float32, 16 lanes × 25
-   sim steps (50 until PR 5: cut to make room for E and F), with the
+   HotPathConfig defaults (structure-mode Newton), float32, 16 lanes × 100
+   sim steps (tests/test_hotpath.py's depth), with the
    kernel's launch counter read around it and the
    closed-loop health checked as tests/test_hotpath.py checks the JAX
    package: the same 16 lanes (``hotpath.conf_initial_states``), the
@@ -92,9 +92,10 @@ Phases (any failure raises and the script exits non-zero):
    (assets/flamingo_offsets16.npz, tools/flamingo_lanes_reference.py). The
    nominal lane converges every step, moves up the slope, keeps its torso
    0.4 above the terrain and its |angle| under 0.5; at most one lane fewer
-   than the JAX package's 16 converges every step. The flamingo's
-   ``torch.func`` derivatives cost two to three minutes a period on the
-   card, so E runs 10 steps, not the 50 of D, once, with the spans on;
+   than the JAX package's 16 converges every step. E runs ``E_STEPS`` sim
+   steps once (its period costs the most of any path's), then its first
+   period again with the spans on and a device-only trace that counts the
+   kernels it launches;
 12. path F — the 3D hopper hopping forward: ``simulate`` driven by
    ``ci_mpc_policy`` in tests/test_mpc_hopper_3d.py's configuration
    (gait_forward on flat_3d_lc, configuration mode, a 340 × 340 KKT a
@@ -105,9 +106,19 @@ Phases (any failure raises and the script exits non-zero):
    nominal lane converges every step and travels forward more than half
    the reference's stride over the same knots; at most one lane fewer
    than the JAX package's 16 converges every step;
-13. spans — paths A-D and F once more for 2 control periods (F: 1) with
-   host-synchronised spans on (sim IP, Newton, of it the KKT solve and the
-   knot kernel); E's counted run carries them.
+13. spans — each path once more for 2 control periods (E and F: 1; E's
+   traced) with host-synchronised spans on (sim IP, Newton, of it the KKT
+   solve and the knot kernel);
+14. path G — the nonlinear (second-order) friction cone: the 3D particle on
+   flat_3d_nc through ``simulate`` (the dense LU of the exact Jacobian),
+   float64, 16 lanes × 150 steps sliding from height 1
+   (``cone_path``: every step converges, every lane comes to rest on the
+   ground and keeps to its slide's line);
+15. path H — the Raibert baseline: ``raibert_policy`` on the 2D hopper
+   through ``simulate``, float64, 16 lanes × 100 steps (``raibert_path``:
+   every step converges, the nominal lane lands and takes off), and one
+   TVLQR ``reference_gains`` on the card held to the CPU's. G and H use
+   no MPC and launch no knot kernel.
 
 JSON lines give the bound and the kernel's share of it at each timed
 shape; the line before the card's name is a JSON object with the kernel's
@@ -127,8 +138,10 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import contactimplicitmpc_tpu_torch as pt
+from contactimplicitmpc_tpu_torch.control.gains import reference_gains
 from contactimplicitmpc_tpu_torch.control.implicit_dynamics import (
     CONFIGURATION, default_mpc_ip_options)
 from contactimplicitmpc_tpu_torch.control.linearized import \
@@ -138,10 +151,12 @@ from contactimplicitmpc_tpu_torch.control.rollout import mpc_rollout
 from contactimplicitmpc_tpu_torch.control.objective import (
     tracking_objective, tracking_velocity_objective)
 from contactimplicitmpc_tpu_torch.control.policy import CIMPCOptions
+from contactimplicitmpc_tpu_torch.control.raibert import raibert_policy
 from contactimplicitmpc_tpu_torch.control.trajectory import (
     ContactTraj, from_gait, initial_conditions, tracking_errors)
 from contactimplicitmpc_tpu_torch.env import (flat_2d_lc, flat_2d_nc,
-                                              flat_3d_lc, slope_smooth_2d_lc)
+                                              flat_3d_lc, flat_3d_nc,
+                                              slope_smooth_2d_lc)
 from contactimplicitmpc_tpu_torch.hotpath import (HotPathConfig,
                                                   conf_initial_states,
                                                   make_quadruped_rollout)
@@ -152,6 +167,7 @@ from contactimplicitmpc_tpu_torch.models.centroidal_quadruped import \
 from contactimplicitmpc_tpu_torch.models.flamingo import flamingo
 from contactimplicitmpc_tpu_torch.models.hopper_2d import hopper_2d
 from contactimplicitmpc_tpu_torch.models.hopper_3d import hopper_3d
+from contactimplicitmpc_tpu_torch.models.particle import particle
 from contactimplicitmpc_tpu_torch.models.particle_2d import particle_2d
 from contactimplicitmpc_tpu_torch.ops import knot_ip as knot_mod
 from contactimplicitmpc_tpu_torch.ops.fixed_ip import linearized_ip_fixed
@@ -243,6 +259,10 @@ QUADRUPED_SHARES = {"conv_agree": CONV_AGREE, "q2_share": Q2_SHARE,
 # measured; copies are exact.
 PACK_TOL = 1e-5
 PACK_EXACT = ("rza", "dy1", "ry1d", "ry2", "z0", "r0", "theta0", "rtheta0")
+
+# Path E's depth: the 50 steps of path D, now that the flamingo's and the 3D
+# hopper's derivatives are written out (PERF.md §6)
+E_STEPS = 50
 
 SPIN_CYCLES = 60_000_000   # ≈ 35 ms of device spin ahead of timed launches
 
@@ -880,15 +900,11 @@ def hopper3d_rollout(dev):
 
 def flamingo_path(dev, tag, steps):
     """Path E: ``flamingo_rollout`` for ``steps`` sim steps with the health
-    tests/test_mpc_flamingo_slope.py checks; returns the launches. A period
-    costs minutes here (the flamingo's ``torch.func`` derivatives),
-    so E runs once, cold, with the spans on: they synchronise around each
-    span, which costs inside the run-to-run spread on a path bound by the
-    host's dispatch (PERF.md, PR 3)."""
+    tests/test_mpc_flamingo_slope.py checks; returns the launches. Then its
+    first control period again with the spans on and a device-only trace
+    that counts the kernels it launches."""
     roll, ref, n_sample, sim_env, lanes = flamingo_rollout(dev)
-    spans.start()
     res, launches, wall = counted(lambda: roll(steps))
-    got = spans.stop()
     check_outputs(res)
     assert launches >= steps // n_sample, launches
     ok = res.sim_converged.all(dim=1)
@@ -908,13 +924,21 @@ def flamingo_path(dev, tag, steps):
           f", mean sim iterations "
           f"{float(res.sim_iterations.float().mean()):.3f}, knot_ip launches "
           f"{launches} {tag}", flush=True)
-    print_spans("path E", f"{lanes} lanes x {steps} steps, the run above",
-                got, wall, tag)
     assert bool(ok[0]), "nominal lane sim failed"
     assert float(dx[0]) > 0.0, float(dx[0])
     assert float(clearance[0]) > 0.4, float(clearance[0])
     assert float(angle[0]) < 0.5, float(angle[0])
     assert int(ok.sum()) >= FLAMINGO_JAX_OK - 1, ok.tolist()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got, span_wall = spanned(lambda: roll(n_sample))
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"path E: kernels launched a control period {kernels} (the first "
+          f"period again, a device-only trace), mean sim iterations a step "
+          f"{float(res.sim_iterations.float().mean()):.3f} over the {steps} "
+          f"steps {tag}", flush=True)
+    print_spans("path E", f"{lanes} lanes x {n_sample} steps", got,
+                span_wall, tag)
     return launches
 
 
@@ -957,6 +981,116 @@ def hopper3d_path(dev, tag, steps):
     print_spans("path F", f"{lanes} lanes x {n_sample} steps", got,
                 span_wall, tag)
     return launches
+
+
+def cone_path(dev, tag):
+    """Path G: the 3D particle on flat_3d_nc (the nonlinear friction cone)
+    through ``simulate`` with tests/test_nonlinear_cone.py's default
+    options, float64, 16 lanes × 150 steps of 0.01 from height 1. Lane 0 is
+    that test's slide at v = (1, 2, 0); lanes 1-15 slide at horizontal
+    velocities of |v| ≤ 2 from numpy.random.default_rng(7). Every step of
+    every lane converges; each lane comes to rest on the ground (height
+    within 1e-6, the last step's velocity within 1e-5), and the isotropic
+    cone keeps each slide on its line: the end point lies within 1e-3 of
+    its scale of the line along the lane's velocity."""
+    f64 = torch.float64
+    rng = np.random.default_rng(7)
+    speed, heading = rng.uniform(0.0, 2.0, 15), rng.uniform(0, 2 * np.pi, 15)
+    vxy = np.concatenate([[[1.0, 2.0]], np.stack(
+        [speed * np.cos(heading), speed * np.sin(heading)], axis=1)])
+    v1 = torch.tensor(np.concatenate([vxy, np.zeros((16, 1))], axis=1),
+                      dtype=f64, device=dev)
+    q1 = torch.tensor([[0.0, 0.0, 1.0]] * 16, dtype=f64, device=dev)
+    steps, h = 150, 0.01
+    t0 = time.time()
+    traj = pt.simulate(particle, flat_3d_nc, steps, h, q1, v1)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check_outputs(traj)
+    q_end, v_end = traj.q[:, -1], (traj.q[:, -1] - traj.q[:, -2]) / h
+    vn = torch.as_tensor(vxy, dtype=f64, device=dev)
+    off_line = (q_end[:, 0] * vn[:, 1] - q_end[:, 1] * vn[:, 0]).abs() / \
+        vn.norm(dim=1)
+    scale = torch.clamp(q_end[:, :2].norm(dim=1), min=1.0)
+    print(f"path G (particle on flat_3d_nc, simulate, float64): 16 lanes x "
+          f"{steps} steps in {wall:.2f} s, steps converged "
+          f"{int(traj.converged.sum())}/{traj.converged.numel()}, mean sim "
+          f"iterations {float(traj.iterations.float().mean()):.3f}, largest "
+          f"|height| at the end {float(q_end[:, 2].abs().max()):.3g}, "
+          f"largest end speed {float(v_end.abs().max()):.3g}, largest "
+          f"distance from the slide's line {float(off_line.max()):.3g}, "
+          f"nominal end point {q_end[0].tolist()} {tag}", flush=True)
+    assert bool(traj.converged.all()), traj.converged.all(dim=1).tolist()
+    assert float(q_end[:, 2].abs().max()) < 1e-6
+    assert float(v_end.abs().max()) < 1e-5
+    assert bool((off_line < 1e-3 * scale).all()), off_line.tolist()
+    assert abs(float(q_end[0, 0]) * 2.0 - float(q_end[0, 1])) < 1e-3
+    return wall
+
+
+def raibert_path(dev, tag):
+    """Path H: ``raibert_policy`` on the 2D hopper through ``simulate`` with
+    tests/test_raibert.py's options (h_sim 0.02, v0 0.2, r_tol and κ_tol
+    1e-8, 100 iterations, 25 halvings), float64, 16 lanes × 100 steps. Lane
+    0 is that test's q1 = [0, 0.5, 0, 0.5]; lanes 1-15 add 0.02 ·
+    uniform(−1, 1) from numpy.random.default_rng(8). Every step of every
+    lane converges, and lane 0 lands and takes off again. Then one
+    ``reference_gains`` for the hopper's in-place gait (tests/test_gains.py)
+    on the card, held to the same call on CPU tensors to 1e-8."""
+    f64 = torch.float64
+    h = 0.02
+    offsets = 0.02 * np.random.default_rng(8).uniform(-1.0, 1.0, (15, 4))
+    q1 = torch.tensor(np.concatenate([np.zeros((1, 4)), offsets])
+                      + [0.0, 0.5, 0.0, 0.5], dtype=f64, device=dev)
+    opts = IPOptions(r_tol=1e-8, kappa_tol=1e-8, max_iter=100,
+                     undercut=float("inf"), max_ls=25)
+    t0 = time.time()
+    traj = pt.simulate(hopper_2d, flat_2d_lc, 100, h, q1,
+                       torch.zeros_like(q1),
+                       policy=raibert_policy(hopper_2d, h=h, v0=0.2),
+                       opts=opts)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check_outputs(traj)
+    gamma0 = traj.gamma[0, :, 0]
+    landed = gamma0 > 1.5e-2
+    took_off = bool(landed.any()) and bool(
+        (gamma0[int(landed.nonzero()[0, 0]):] < 1.5e-3).any())
+    print(f"path H (hopper_2D raibert_policy, simulate, float64): 16 lanes x "
+          f"100 steps in {wall:.2f} s, steps converged "
+          f"{int(traj.converged.sum())}/{traj.converged.numel()}, mean sim "
+          f"iterations {float(traj.iterations.float().mean()):.3f}, lane 0 "
+          f"in contact on {int(landed.sum())} steps and takes off after "
+          f"landing: {took_off}, x travelled nominal "
+          f"{float(traj.q[0, -1, 0] - traj.q[0, 1, 0]):.4f} {tag}",
+          flush=True)
+    assert bool(traj.converged.all()), traj.converged.all(dim=1).tolist()
+    assert took_off
+
+    gait = load_gait("hopper_2D", "gait_in_place")
+    dims = dims_of(hopper_2d, flat_2d_lc)
+    gains = {}
+    t1 = time.time()
+    for d in (dev, torch.device("cpu")):
+        ref = from_gait(hopper_2d, flat_2d_lc, gait, kappa=1e-4, device=d)
+        obj = tracking_velocity_objective(
+            dims, ref.horizon,
+            q=np.tile(1e-2 * np.array([0.1, 3, 1, 3]), (ref.horizon, 1)),
+            v=np.tile(1e-3 * np.ones(4), (ref.horizon, 1)),
+            u=np.tile(np.array([3e-3, 1.0]), (ref.horizon, 1)), device=d)
+        gains[d.type] = reference_gains(hopper_2d, flat_2d_lc, ref, obj,
+                                        periods=3)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            t_card = time.time() - t1
+    assert gains["cuda"].is_cuda
+    err = float((gains["cuda"].cpu() - gains["cpu"]).abs().max())
+    print(f"path H: reference_gains (hopper_2D gait_in_place, 3 periods) on "
+          f"the card in {t_card:.2f} s, {tuple(gains['cuda'].shape)}, "
+          f"largest |gain| {float(gains['cpu'].abs().max()):.4g}, against "
+          f"CPU tensors {err:.3g} {tag}", flush=True)
+    assert err < 1e-8, err
+    return wall
 
 
 def main():
@@ -1042,15 +1176,19 @@ def main():
             converged_only=False)
         phases[name] = (err, times, (16 * 7 * k, k))
 
-    # ---- 9-15. the six paths, each with its spans ----------------------------
+    # ---- 9-13. the six paths, each with its spans ----------------------------
     launches = {
-        "A": quadruped_path("path A", cfg, 25, dev, tag),
+        "A": quadruped_path("path A", cfg, 100, dev, tag),
         "B": hopper_path(dev, tag),
         "C": quadruped_path("path C", HotPathConfig(newton_mode="direct"),
                             25, dev, tag),
         "D": centroidal_path(dev, tag),
-        "E": flamingo_path(dev, tag, 10),
+        "E": flamingo_path(dev, tag, E_STEPS),
         "F": hopper3d_path(dev, tag, 100)}
+    # ---- 14-15. the nonlinear cone and the Raibert baseline: no MPC, no
+    # knot kernel ----------------------------------------------------------
+    cone_path(dev, tag)
+    raibert_path(dev, tag)
     paths_of = {"quadruped": "AC", "hopper_2D": "B",
                 "centroidal_quadruped": "D", "flamingo": "E",
                 "hopper_3D": "F"}

@@ -32,7 +32,8 @@ from .env import (ENVIRONMENTS, Environment,  # noqa: E402
 from .models.base import Model, dims_of, dynamics  # noqa: E402
 from .sim.interior_point import (IPOptions, IPResult, ip_solve,  # noqa: E402
                                  z_initialize, z_warmstart)
-from .sim.residual import (pack_theta, pack_z, residual,  # noqa: E402
+from .sim.residual import (pack_theta, pack_z,  # noqa: E402
+                           pack_z_consistent, residual,
                            residual_theta_jacobian, residual_z_jacobian,
                            unpack_theta, unpack_z)
 from .sim.simulator import (PolicyObs, SimTrajectory,  # noqa: E402

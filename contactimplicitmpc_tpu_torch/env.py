@@ -9,8 +9,9 @@ return heights ``(...)``; a gradient not given is taken by ``torch.func``
 gradient differs from the derivative (the hard stairs report slope 0) or
 is written out (the piecewise slopes) give it explicitly. Branches are
 ``torch.where`` chains with the JAX package's strict ``<`` boundaries.
-The nonlinear-cone terrains (``*_nc``) are data here: ``ip_solve`` still
-refuses that cone.
+The nonlinear-cone terrains (``*_nc``) select the second-order friction
+cone in ``sim/residual.py`` and ``sim/interior_point.py``; the MPC's
+linearized knot path has no branch for it.
 """
 
 from __future__ import annotations

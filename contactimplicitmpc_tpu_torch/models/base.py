@@ -4,7 +4,8 @@ PyTorch counterpart of ``contactimplicitmpc_tpu/models/base.py``. Model
 methods act on ONE sample (``q`` of shape ``(nq,)``), are free of in-place
 writes and host reads, and so compose with ``torch.func`` transforms: the
 batch is a ``torch.func.vmap`` over them, and the autodiff defaults below
-are ``torch.func`` derivatives of the Lagrangian:
+are ``torch.func`` derivatives of the Lagrangian (the models on the paths
+write theirs out; the tests hold them to these defaults):
 
 * ``mass_matrix``  default = ∂²L/∂v²
 * ``bias``         default = ∂²L/∂v∂q · v − ∂L/∂q
@@ -52,8 +53,12 @@ class Model:
         t = cache.get(key)
         if t is None:
             value = value() if callable(value) else value
-            t = torch.tensor(np.array(value, dtype=np.float64),
-                             dtype=like.dtype).to(like.device)
+            # made outside any torch.func transform: a tensor made inside
+            # one (a hessian's inner grad) is wrapped at its level, and the
+            # cached copy would escape that level on the next call
+            with torch._C._DisableFuncTorch():
+                t = torch.tensor(np.array(value, dtype=np.float64),
+                                 dtype=like.dtype).to(like.device)
             cache[key] = t
         return t
 

@@ -9,10 +9,14 @@ Configuration (model.jl:455-460)::
          θ_foot1, θ_foot2]
 
 The torso points up (kinematics_1 torso branch negates the sine terms,
-model.jl:61-93); contacts are [toe1, heel1, toe2, heel2]. As in the JAX
-package, the mass matrix and the contact Jacobian are ``torch.func.jacfwd``
-of the bodies' and contacts' positions, and the bias is the ``torch.func``
-default of the Lagrangian (no closed form, unlike the quadruped's).
+model.jl:61-93); contacts are [toe1, heel1, toe2, heel2]. Every body and
+contact point is the hip (x, z) plus Σⱼ arm[j] · (sin θⱼ, −cos θⱼ) over the
+seven absolute angles θ = q[2:], as in the quadruped: the point Jacobians,
+the mass matrix, the contact Jacobian and the bias are written out in
+closed form (the JAX package takes them from ``jax.jacfwd`` and the
+Lagrangian; the tests hold each to the ``torch.func`` derivatives of
+``lagrangian``). Positions keep their chained evaluation order, so that ϕ
+and the points round as before.
 """
 
 from __future__ import annotations
@@ -26,6 +30,10 @@ from .base import Model
 # rotational DoF of each body in q order: torso=2, thigh1=3, calf1=4,
 # foot1=7, thigh2=5, calf2=6, foot2=8
 _ROT_IDX = [2, 3, 4, 7, 5, 6, 8]
+
+# rows of the lever-arm matrix: the 7 bodies, then the 4 contacts
+_COMS = slice(0, 7)
+_FEET = slice(7, 11)
 
 
 class Flamingo(Model):
@@ -62,6 +70,37 @@ class Flamingo(Model):
             b[row, parent] = -1.0
             b[row, child] = 1.0
         self._b = b
+        self._arms = self._lever_arms()
+
+    def _lever_arms(self):
+        """(7 bodies + 4 contacts, 7 angles) lever arms over θ = q[2:]
+        (torso, thigh1, calf1, thigh2, calf2, foot1, foot2): the torso
+        points up (arm −d_torso); toe and heel hang from the ankle with
+        +l_foot and −d_foot; the foot's centre of mass sits at
+        ½(l_foot − d_foot)."""
+        cb = 0.5 * (self.l_foot - self.d_foot)
+        arms = np.zeros((11, 7))
+        arms[0, 0] = -self.d_torso
+        for leg, (th, ca, ft) in enumerate(((1, 2, 5), (3, 4, 6))):
+            body = 1 + 3 * leg
+            arms[body, th] = self.d_thigh
+            arms[body + 1, [th, ca]] = self.l_thigh, self.d_calf
+            arms[body + 2, [th, ca, ft]] = self.l_thigh, self.l_calf, cb
+            for toe, arm in enumerate((self.l_foot, -self.d_foot)):
+                arms[7 + 2 * leg + toe, [th, ca, ft]] = (self.l_thigh,
+                                                         self.l_calf, arm)
+        return arms
+
+    def _point_jacobians(self, q, rows):
+        """Closed-form ∂(point)/∂q of the lever-arm rows ``rows``,
+        (n, 2, nq): the identity in (x, z), arm[j] · (cos θⱼ, sin θⱼ) in
+        column 2 + j. Each entry of ``jacfwd`` of the chained positions is
+        that one product or an exact zero, so the two agree bit for bit."""
+        arms = self.const(("arms", rows.start), self._arms[rows], q)
+        eye = self.const(("eye2", rows.start), lambda: np.broadcast_to(
+            np.eye(2), (arms.shape[0], 2, 2)), q)
+        dd = torch.stack([torch.cos(q[2:]), torch.sin(q[2:])], dim=0)
+        return torch.cat([eye, arms[:, None, :] * dd[None]], dim=-1)
 
     @staticmethod
     def _down(p, r, theta):
@@ -108,11 +147,24 @@ class Flamingo(Model):
         return ke - pe
 
     def mass_matrix(self, q):
-        """model.jl:352-389."""
+        """model.jl:352-389: Σ mᵢ JᵢᵀJᵢ + rotational inertias."""
         masses = self.const("masses", self._masses, q)
-        jac = jacfwd(self._com_positions)(q)
+        jac = self._point_jacobians(q, _COMS)    # (7, 2, nq)
         m = torch.einsum("b,bin,bim->nm", masses, jac, jac)
         return m + torch.diag(self.const("rot_diag", self._rot_diag, q))
+
+    def bias(self, q, v):
+        """C(q, v) = ∂²L/∂v∂q · v − ∂L/∂q in closed form, as the
+        quadruped's: Σ mᵢ Jᵢᵀ(J̇ᵢv) + g Σ mᵢ ∂yᵢ/∂q with
+        J̇ᵢv = (arms · θ̇²) @ (−sin θ, cos θ) (the rotational inertias are
+        constant and add nothing)."""
+        masses = self.const("masses", self._masses, q)
+        arms = self.const(("arms", _COMS.start), self._arms[_COMS], q)
+        jac = self._point_jacobians(q, _COMS)    # (7, 2, nq)
+        dd2 = torch.stack([-torch.sin(q[2:]), torch.cos(q[2:])], dim=-1)
+        jdot_v = (arms * v[2:] ** 2) @ dd2        # (7, 2)
+        return (torch.einsum("b,bin,bi->n", masses, jac, jdot_v)
+                + self.g * (masses @ jac[:, 1, :]))
 
     def control_jacobian(self, q):
         """model.jl:404-411 — relative torques: hips, knees, ankles."""
@@ -124,7 +176,7 @@ class Flamingo(Model):
 
     def contact_jacobian(self, q):
         """model.jl:418-429 — stacked toe/heel Jacobians (8, 9)."""
-        return jacfwd(lambda qq: self.kinematics(qq).reshape(-1))(q)
+        return self._point_jacobians(q, _FEET).reshape(2 * self.nc, self.nq)
 
 
 flamingo = Flamingo()

@@ -3,18 +3,20 @@
 PyTorch counterpart of ``contactimplicitmpc_tpu/models/hopper_3d.py``.
 q = (px, py, pz, mrp_x, mrp_y, mrp_z, r): body position, modified
 Rodrigues parameters, leg length. Mass matrix and bias are the reference's
-analytic ones; the contact Jacobian is ``torch.func.jacfwd`` of the foot's
-position, as the JAX package takes it by ``jax.jacfwd``.
+analytic ones; the contact Jacobian is written out (the JAX package takes it
+by ``jax.jacfwd`` of the foot's position; the tests hold the two to each
+other), since every derivative of the residual differentiates through it
+again.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.func import jacfwd
 
 from .base import Model
-from .rotations import mrp_rotation_matrix
+from .rotations import (mrp_quaternion_map, mrp_rotation_matrix,
+                        quaternion_rotation_matrix)
 
 
 class Hopper3D(Model):
@@ -70,8 +72,26 @@ class Hopper3D(Model):
         return self.const("disturbance_jacobian", np.eye(3, 7), q)
 
     def contact_jacobian(self, q):
-        """hopper_3D/model.jl:71-74 — autodiff of the foot's position."""
-        return jacfwd(lambda qq: self.kinematics(qq).reshape(-1))(q)
+        """hopper_3D/model.jl:71-74 — ∂foot/∂q of foot = p − r c(m), with
+        c = R(m) e3 the leg's axis, in closed form: I in p, −r ∂c/∂m in m
+        (through the quaternion (w, x, y, z) of the MRP m), −c in r."""
+        m, r = q[3:6], q[6:7]
+        quat = mrp_quaternion_map(m)
+        c = quaternion_rotation_matrix(quat)[:, 2]
+        w, x, y, z = quat[0:1], quat[1:2], quat[2:3], quat[3:4]
+        o = torch.zeros_like(w)
+        # ∂c/∂(w, x, y, z) of c = (2(xz + wy), 2(yz − wx), 1 − 2(x² + y²))
+        dc_dq = torch.stack([torch.cat([y, z, w, x]),
+                             torch.cat([-x, -w, z, y]),
+                             torch.cat([o, -2.0 * x, -2.0 * y, o])]) * 2.0
+        # ∂(w, x, y, z)/∂m of w = (1 − |m|²)/(1 + |m|²), v = 2m/(1 + |m|²)
+        den = 1.0 + torch.sum(m * m, dim=-1, keepdim=True)
+        dw_dm = -4.0 * m / den ** 2
+        dv_dm = (2.0 / den) * torch.eye(3, dtype=q.dtype, device=q.device) \
+            - (4.0 / den ** 2) * m[:, None] * m[None, :]
+        dq_dm = torch.cat([dw_dm[None], dv_dm], dim=0)
+        return torch.cat([torch.eye(3, dtype=q.dtype, device=q.device),
+                          -r * (dc_dq @ dq_dm), -c[:, None]], dim=1)
 
 
 hopper_3d = Hopper3D()

@@ -5,8 +5,9 @@ reference's ``pushbot/model.jl``). q = (θ, d) where d is the end-effector
 slider along the pole; two contacts against walls at x = ±0.5. Its own ϕ
 (wall gaps) and contact Jacobian (the slider Jacobian rotated so that each
 wall's normal is the contact frame's last axis) replace the height-field
-defaults; mass matrix and bias are the ``torch.func`` defaults of the
-Lagrangian.
+defaults. Mass matrix and bias are written out (the JAX package takes them
+from the Lagrangian; the tests hold them to its ``torch.func``
+derivatives).
 """
 
 from __future__ import annotations
@@ -74,6 +75,29 @@ class PushBot(Model):
         lag = lag - self.mb * self.g * lc[0:1]
         lag = lag + 0.5 * self.ma * torch.sum(vd * vd, dim=0)
         return (lag - self.ma * self.g * self._kin_d(q)[1:2])[0]
+
+    def mass_matrix(self, q):
+        """M = [[m_b l² + m_a (l² + d²), −m_a l], [−m_a l, m_a]]: the
+        pole's point has |J_b v|² = l² θ̇², the slider's
+        J_aᵀJ_a = [[l² + d², −l], [−l, 1]]."""
+        d = q[1:2]
+        m00 = (self.mb + self.ma) * self.l ** 2 + self.ma * d ** 2
+        off = torch.full_like(d, -self.ma * self.l)
+        return torch.cat([m00, off, off, torch.full_like(d, self.ma)]
+                         ).reshape(2, 2)
+
+    def bias(self, q, v):
+        """Σ mᵢ Jᵢᵀ(J̇ᵢv) + g Σ mᵢ ∂yᵢ/∂q over the pole's point
+        (J_bᵀJ̇_b v = 0) and the slider's end (J_aᵀJ̇_a v =
+        (2 d ḋ θ̇, −d θ̇²)): C = (2 m_a d ḋ θ̇ − m_b g l s + m_a g (d c − l s),
+        m_a (g s − d θ̇²))."""
+        c, s = _cos_sin(q)
+        d, om, dd = q[1:2], v[0:1], v[1:2]
+        c, s = c[None], s[None]
+        c0 = (2.0 * self.ma * d * dd * om - self.mb * self.g * self.l * s
+              + self.ma * self.g * (d * c - self.l * s))
+        c1 = self.ma * (self.g * s - d * om ** 2)
+        return torch.cat([c0, c1])
 
     def phi(self, env, q):
         """Wall gaps at x = ±0.5 (pushbot/model.jl:88-92)."""

@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``contactimplicitmpc_tpu/models/quadruped.py``.
 Every com and foot is one row of a constant lever-arm matrix over the
-absolute angles, so positions and their Jacobians are two small tensor
-expressions; the Lagrangian's derivatives come from ``torch.func``.
+absolute angles, so positions, their Jacobians, the mass matrix and the
+bias are small tensor expressions written out in closed form (the tests
+hold them to the ``torch.func`` derivatives of ``lagrangian``).
 
 Configuration::
 

@@ -4,8 +4,9 @@ PyTorch counterpart of ``contactimplicitmpc_tpu/models/walledcartpole.py``
 (the reference's ``walledcartpole/model.jl``). q = (θ, x, xw1, xw2): pole
 angle, cart position and the two wall deflections (spring-loaded with
 stiffness k). Its own ϕ (the tip's gap to each deflected wall) and contact
-Jacobian replace the height-field defaults; mass matrix and bias are the
-``torch.func`` defaults of the Lagrangian.
+Jacobian replace the height-field defaults. Mass matrix and bias are
+written out (the JAX package takes them from the Lagrangian; the tests hold
+them to its ``torch.func`` derivatives).
 """
 
 from __future__ import annotations
@@ -63,6 +64,26 @@ class WalledCartpole(Model):
         pe = self.mt * self.g * self.lc * torch.cos(th)
         pe = pe + self.k * (xw1 ** 2 + xw2 ** 2)
         return (ke - pe)[0]
+
+    def mass_matrix(self, q):
+        """M = [[mₜ l꜀², −mₜ l꜀ cos θ, 0, 0], [−mₜ l꜀ cos θ, mₜ + m_b, 0, 0],
+        [0, 0, m_w, 0], [0, 0, 0, m_w]] (one-element slices: see ``_tip``)."""
+        off = -self.mt * self.lc * torch.cos(q[0:1])
+        z = torch.zeros_like(off)
+        return torch.cat([
+            torch.full_like(off, self.mt * self.lc ** 2), off, z, z,
+            off, torch.full_like(off, self.mt + self.mb), z, z,
+            z, z, torch.full_like(off, self.mw), z,
+            z, z, z, torch.full_like(off, self.mw)]).reshape(4, 4)
+
+    def bias(self, q, v):
+        """C = (−mₜ g l꜀ sin θ, mₜ l꜀ sin θ · ω², 2k x_w1, 2k x_w2): the
+        pole's centripetal term, gravity and the wall springs."""
+        s = torch.sin(q[0:1])
+        om = v[0:1]
+        return torch.cat([-self.mt * self.g * self.lc * s,
+                          self.mt * self.lc * s * om ** 2,
+                          2.0 * self.k * q[2:4]])
 
     def phi(self, env, q):
         """Gap to each (deflected) wall (walledcartpole/model.jl:101-110)."""

@@ -46,6 +46,26 @@ def gj_inverse(a, boost: float = 0.0):
     return ab[..., n:]
 
 
+class GJFactors:
+    """Opaque factor handle: Gauss-Jordan stores the inverse explicitly."""
+
+    __slots__ = ("inv",)
+
+    def __init__(self, inv):
+        self.inv = inv
+
+
+def gj_factor(a, boost: float = 0.0) -> GJFactors:
+    return GJFactors(gj_inverse(a, boost))
+
+
+def gj_apply(factors: GJFactors, b):
+    """``b`` (..., n) or (..., n, R) through the stored inverse."""
+    b, vec = _columns(b, factors.inv)
+    x = factors.inv @ b
+    return x[..., 0] if vec else x
+
+
 def _columns(b, a):
     """``b`` as right-hand-side columns of ``a`` (..., n, n), and whether it
     came as a vector (..., n)."""

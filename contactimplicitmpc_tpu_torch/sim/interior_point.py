@@ -1,9 +1,11 @@
 """Mehrotra-style predictor–corrector interior-point solver for the
 contact NCP, batched over a leading axis of problems.
 
-PyTorch counterpart of ``contactimplicitmpc_tpu/sim/interior_point.py``
-for the linearized cone. Scheme per iteration (relaxed central path over
-``y1 = [γ1; b1; ψ1] ⟂ y2 = [s1; η1; s2]``):
+PyTorch counterpart of ``contactimplicitmpc_tpu/sim/interior_point.py``.
+Scheme per iteration (relaxed central path over
+``y1 = [γ1; b1; ψ1] ⟂ y2 = [s1; η1; s2]``; for the nonlinear cone γ1 ⟂ s1
+over the orthant and, per contact, [ψᵢ; ηᵢ] ⟂ [s2ᵢ; bᵢ] over the
+second-order cone, with the exact Jacobian and a dense LU):
 
 1. affine (predictor) step: solve ``rz Δaff = r(z, θ, 0)``
 2. centering: ``σ = clamp(μaff/μ, 0, 1)³`` with ``μ = y1ᵀy2/ny``
@@ -34,7 +36,9 @@ import torch
 from torch.func import jacfwd, jvp, vmap
 
 from ..dims import Dims
+from ..env import LINEARIZED_CONE
 from ..ops.linsolve import gj_inverse
+from ..ops.soc import NCConeLayout, soc_product, soc_step_length
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,30 +87,35 @@ def _step_length(y, dy, tau):
     return torch.clamp(torch.amin(ratio, dim=-1), max=1.0)
 
 
-def _linearized_only(cone: str):
-    if cone != "linearized":
-        raise NotImplementedError("the nonlinear cone is not ported yet")
+def z_initialize(dims: Dims, q, dtype=None, cone: str = LINEARIZED_CONE):
+    """z_initialize! (simulation.jl:53-81). ``q`` is (..., nq).
 
-
-def z_initialize(dims: Dims, q, dtype=None, cone: str = "linearized"):
-    """z_initialize! (simulation.jl:53-81), linearized cone: ones with the
-    q2 slot set. ``q`` is (..., nq)."""
-    _linearized_only(cone)
+    Linearized cone: ones with the q2 slot set. Nonlinear cone: 0.1 with
+    unit scalar parts (ψ1, s2) so each SOC starts in the cone interior."""
     dtype = dtype or q.dtype
-    ones = torch.ones(q.shape[:-1] + (dims.nz - dims.nq,), dtype=dtype,
-                      device=q.device)
-    return torch.cat([q.to(dtype), ones], dim=-1)
+    shape = q.shape[:-1] + (dims.nz - dims.nq,)
+    if cone == LINEARIZED_CONE:
+        rest = torch.ones(shape, dtype=dtype, device=q.device)
+    else:
+        rest = torch.full(shape, 0.1, dtype=dtype, device=q.device)
+        for sl in (dims.ipsi1, dims.is2):
+            rest[..., sl.start - dims.nq:sl.stop - dims.nq] = 1.0
+    return torch.cat([q.to(dtype), rest], dim=-1)
 
 
 def z_warmstart(dims: Dims, q, z_prev, generator=None, amplitude=1.0e-3,
-                cone: str = "linearized", draw=None):
+                cone: str = LINEARIZED_CONE, draw=None):
     """z_warmstart! (simulation.jl:87-107): the previous solution's cone
     variables, nudged into the interior by a positive uniform perturbation
     of the given amplitude, with the q2 slot pinned again. ``q`` is
     (..., nq) and ``z_prev`` (..., nz). The perturbation is ``amplitude``
     times ``draw`` (..., nz − nq) where given, else times a uniform [0, 1)
-    draw from ``generator`` (the default generator when None)."""
-    _linearized_only(cone)
+    draw from ``generator`` (the default generator when None).
+
+    The nonlinear cone falls back to ``z_initialize`` (the reference's
+    behavior) and draws nothing."""
+    if cone != LINEARIZED_CONE:
+        return z_initialize(dims, q, z_prev.dtype, cone=cone)
     cone_prev = z_prev[..., dims.nq:]
     if draw is None:
         draw = torch.rand(cone_prev.shape, generator=generator,
@@ -197,18 +206,57 @@ def make_ncp_schur_solver(dims: Dims, residual_fn, opts: IPOptions):
     return factor, solve
 
 
+def _nc_tools(dims: Dims, like):
+    """The nonlinear cone's step length, μ, Mehrotra correction and κ on the
+    bilinear rows (it enters the orthant rows and each SOC block's first
+    row) over its layout (orthant γ1 ⟂ s1, then one SOC pair a contact), on
+    a batch (B, nz) of ``like``'s dtype and device."""
+    lay = NCConeLayout(dims)
+    idx = lambda a: torch.as_tensor(a, device=like.device)
+    ort_a, ort_b = idx(lay.ort_a), idx(lay.ort_b)
+    soc_u, soc_v = idx(lay.soc_u), idx(lay.soc_v)          # (nc, nf + 1)
+
+    def step_length(z, d, tau):
+        alpha = torch.minimum(_step_length(z[:, ort_a], d[:, ort_a], tau),
+                              _step_length(z[:, ort_b], d[:, ort_b], tau))
+        t = tau[:, None]
+        return torch.minimum(alpha, torch.minimum(
+            soc_step_length(z[:, soc_u], d[:, soc_u], t),
+            soc_step_length(z[:, soc_v], d[:, soc_v], t)).amin(dim=-1))
+
+    def mu_of(z):
+        total = torch.sum(z[:, ort_a] * z[:, ort_b], dim=-1)
+        pair = torch.sum(z[:, soc_u] * z[:, soc_v], dim=-1)   # (B, nc)
+        for i in range(dims.nc):           # the JAX package's order
+            total = total + pair[:, i]
+        return total / (2 * dims.nc)
+
+    def correction(d):
+        return torch.cat([d[:, ort_a] * d[:, ort_b], soc_product(
+            d[:, soc_u], d[:, soc_v]).flatten(1)], dim=-1)
+
+    kmask = like.new_zeros((dims.ny,))
+    kmask[:dims.nc] = 1.0
+    kmask[dims.nc::dims.nf + 1] = 1.0
+
+    def kappa_rows(kappa):
+        return kappa[:, None] * kmask
+
+    return step_length, mu_of, correction, kappa_rows
+
+
 def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
              jacobian_fn: Optional[Callable] = None,
              rtheta_fn: Optional[Callable] = None, linear_solver=None,
-             cone: str = "linearized", batched: bool = False) -> IPResult:
+             cone: str = LINEARIZED_CONE, batched: bool = False) -> IPResult:
     """Solve ``r(z, θ, κ→κ_tol) = 0`` for a batch: ``z0`` (B, nz) and
     ``theta`` (B, nθ).
 
     ``residual_fn(z, θ, κ)``, ``jacobian_fn(z, θ)`` and ``rtheta_fn(z, θ)``
     act on one sample and are batched here with ``vmap``; ``rtheta_fn``
     defaults to the forward-mode derivative of ``residual_fn``.
-    ``jacobian_fn`` is there for the JAX package's signature: only its
-    dense backend reads one, and ``make_dense_solver`` takes it directly. With
+    ``jacobian_fn`` (one sample; by default the forward-mode derivative of
+    ``residual_fn``) feeds the dense LU that the nonlinear cone selects. With
     ``batched=True`` the three take the whole batch instead (problems
     whose data differs from one to the next, as the MPC's pre-linearized
     knots): ``residual_fn`` then gets ``z`` as (B, nz) with ``κ`` (B,), or
@@ -218,9 +266,11 @@ def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
     ``linear_solver`` is a ``(factor, solve)`` pair on the batch:
     ``factor(z, θ, κvio)`` and ``solve(factors, rhs)`` with ``rhs`` (B, nz)
     or (B, nz, R). It defaults to the structured Schur elimination of
-    ``make_ncp_schur_solver``.
+    ``make_ncp_schur_solver`` for the linearized cone, and to the exact
+    Jacobian's dense LU (``make_dense_solver``, no γ_reg clamp) for the
+    nonlinear cone, whose SOC rows have arrow-matrix Jacobians.
     """
-    _linearized_only(cone)
+    linearized = cone == LINEARIZED_CONE
     dtype = z0.dtype
     nx, ny = dims.nx, dims.ny
     ne = nx + ny
@@ -240,7 +290,14 @@ def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
         if batched:
             raise ValueError("ip_solve: batched callables need a "
                              "linear_solver")
-        linear_solver = make_ncp_schur_solver(dims, residual_fn, opts)
+        if linearized:
+            linear_solver = make_ncp_schur_solver(dims, residual_fn, opts)
+        else:
+            jac_one = jacobian_fn or jacfwd(
+                lambda zz, th: residual_fn(zz, th, 0.0))
+            linear_solver = make_dense_solver(
+                dims, vmap(jac_one), dataclasses.replace(opts, gamma_reg=0.0),
+                clamp_bilinear=False)
     factor_fn, solve_fn = linear_solver
 
     halvings = torch.clamp(
@@ -250,12 +307,22 @@ def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
     one = torch.ones((batch,), dtype=dtype, device=z0.device)
     zero = torch.zeros_like(one)
 
-    def cone_step_length(z, d, tau):
-        return torch.minimum(_step_length(z[:, nx:ne], d[:, nx:ne], tau),
-                             _step_length(z[:, ne:], d[:, ne:], tau))
+    if linearized:
+        def cone_step_length(z, d, tau):
+            return torch.minimum(_step_length(z[:, nx:ne], d[:, nx:ne], tau),
+                                 _step_length(z[:, ne:], d[:, ne:], tau))
 
-    def cone_mu(z):
-        return torch.sum(z[:, nx:ne] * z[:, ne:], dim=-1) / ny
+        def cone_mu(z):
+            return torch.sum(z[:, nx:ne] * z[:, ne:], dim=-1) / ny
+
+        def cone_correction(d):
+            return d[:, nx:ne] * d[:, ne:]
+
+        def cone_kappa(kappa):
+            return kappa[:, None]
+    else:
+        cone_step_length, cone_mu, cone_correction, cone_kappa = _nc_tools(
+            dims, z0)
 
     def apply_reg_jacobian(z, kvio, d):
         """The regularized Jacobian, the operator the factorization
@@ -263,13 +330,16 @@ def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
         of the residual, bilinear rows with the γ_reg-clamped diagonals.
         Refining against it corrects only the rounding of the structured
         solve, so the correction contracts; against the unclamped Jacobian
-        it diverges wherever the clamp is active."""
+        it diverges wherever the clamp is active. The nonlinear cone's dense
+        backend factors the exact Jacobian: no clamp to match there."""
         if batched:
             jd = jvp(lambda zz: residual_fn(zz, theta, zero), (z,), (d,))[1]
         else:
             jd = vmap(lambda zz, th, dd: jvp(
                 lambda x: residual_fn(x, th, 0.0), (zz,), (dd,))[1])(
                     z, theta, d)
+        if not linearized:
+            return jd
         reg = opts.gamma_reg * kvio[:, None]
         y1r = torch.maximum(z[:, nx:ne], reg)
         y2r = torch.maximum(z[:, ne:], reg)
@@ -292,7 +362,8 @@ def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
 
     def body(z, r0, rvio, kvio):
         # r0 is r(z, θ, 0), carried from the previous trip; r(z, θ, κ)
-        # differs from it by −κ on the bilinear rows only
+        # differs from it by −κ on the bilinear rows only (for the
+        # nonlinear cone on the orthant rows and each SOC block's first)
         factors = factor_fn(z, theta, kvio)
         d_aff = refined(z, kvio, factors, r0)
         alpha_aff = cone_step_length(z, d_aff, one)
@@ -302,9 +373,10 @@ def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
             mu, min=torch.finfo(dtype).tiny), 0.0, 1.0) ** 3
         kappa_t = torch.clamp(sigma * mu, min=kappa_floor)
 
-        r_center = torch.cat([r0[:, :ne], r0[:, ne:] - kappa_t[:, None]], -1)
+        r_center = torch.cat([r0[:, :ne], r0[:, ne:] - cone_kappa(kappa_t)],
+                             -1)
         r_cor = torch.cat([r_center[:, :ne], r_center[:, ne:]
-                           + d_aff[:, nx:ne] * d_aff[:, ne:]], -1)
+                           + cone_correction(d_aff)], -1)
         d_cor = refined(z, kvio, factors, r_cor)
         d_cen = refined(z, kvio, factors, r_center)
 
@@ -369,7 +441,7 @@ def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
     # initializer; converged problems enter with done set and iterate no
     # further (their iteration count restarts at 0, as the reference's does)
     for _ in range(opts.retries):
-        z_cold = z_initialize(dims, z0[:, dims.iq2], dtype)
+        z_cold = z_initialize(dims, z0[:, dims.iq2], dtype, cone=cone)
         z, rvio, kvio, it, done = run_from(
             torch.where(done[:, None], z, z_cold))
 

@@ -3,11 +3,11 @@ port against the JAX package, float64 on the CPU: the 3D hopper dropped
 onto flat ground, the pushbot tilted into its wall, the walled cartpole's
 pole falling to a wall, 30 steps each (the JAX tests run 100-300).
 
-The pushbot's and the cartpole's mass matrix and bias are ``torch.func``
-derivatives of their Lagrangians, as the JAX package's are ``jax``
-derivatives: about 0.25 s a sim iteration of one lane on one CPU thread,
-which keeps these runs short. Tolerances: q, the impulses and z to 1e-8,
-flags and iteration counts exactly.
+The pushbot's and the cartpole's mass matrix and bias are written out in
+the port (the JAX package's are ``jax`` derivatives of the Lagrangians;
+tests/test_torch_closed_form.py holds the two forms to each other).
+Tolerances: q, the impulses and z to 1e-8, flags and iteration counts
+exactly.
 """
 
 import jax

@@ -8,11 +8,11 @@ physics on slope_smooth_2d_lc, configuration mode, h_mpc 15, N_sample 5,
 lanes × 10 sim steps: the nominal lane and one with the torso moved by a
 seeded offset of path E's kind.
 
-The flamingo's mass matrix, bias and contact Jacobian are ``torch.func``
-derivatives, as the JAX package's are ``jax`` ones; a sim iteration costs
-seconds on one CPU thread, so the rollout stays at 10 steps (the JAX
-package's own test runs 500). Tolerances: q, u, γ and b 1e-7; flags and
-iteration counts exactly.
+The flamingo's mass matrix, bias and contact Jacobian are written out in
+the port (the JAX package's are ``jax`` derivatives;
+tests/test_torch_closed_form.py holds the two forms to each other). The
+rollout runs 10 steps (the JAX package's own test runs 500). Tolerances:
+q, u, γ and b 1e-7; flags and iteration counts exactly.
 """
 
 import jax

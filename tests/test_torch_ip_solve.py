@@ -197,14 +197,6 @@ def test_dense_solver_matches():
     assert_same(got, want, dz=True)
 
 
-def test_nonlinear_cone_raises():
-    dims, z0, theta = problems("particle_2d")
-    with pytest.raises(NotImplementedError, match="nonlinear cone"):
-        pt.ip_solve(pt.dims_of(particle_2d, pt.flat_2d_lc), None,
-                    torch.as_tensor(z0), torch.as_tensor(theta),
-                    pt.default_sim_options(), cone="nonlinear")
-
-
 def test_z_warmstart_matches():
     """The same uniform draw (made by JAX, handed over as numpy) gives the
     same warm start; a generator gives a draw inside the amplitude."""

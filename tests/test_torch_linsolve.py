@@ -110,3 +110,23 @@ def test_gj_inverse_and_solve_match(boost):
         jnp.asarray(a[1:]), jnp.asarray(b[1:]))
     np.testing.assert_allclose(tl.gj_solve(t(a[1:]), t(b[1:]), boost).numpy(),
                                want, rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.parametrize("cols", [None, 3])
+def test_gj_factor_and_apply_match(cols):
+    """The public factor handle: ``gj_factor`` stores the inverse and
+    ``gj_apply`` multiplies by it, a vector or a matrix of right-hand
+    sides; to 1e-12."""
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((4, 7, 7)) + 4 * np.eye(7)
+    b = rng.standard_normal((4, 7) if cols is None else (4, 7, cols))
+    # GJFactors is no pytree: the JAX side maps the handle's use
+    want_inv = jax.vmap(lambda x: jl.gj_factor(x).inv)(jnp.asarray(a))
+    got_f = tl.gj_factor(t(a))
+    assert isinstance(got_f, tl.GJFactors)
+    np.testing.assert_allclose(got_f.inv.numpy(), want_inv, rtol=0,
+                               atol=1e-12)
+    want = jax.vmap(lambda x, y: jl.gj_apply(jl.gj_factor(x), y))(
+        jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_allclose(tl.gj_apply(got_f, t(b)).numpy(), want,
+                               rtol=0, atol=1e-12)

@@ -10,6 +10,8 @@ The measured configurations are the reference's, shifted per lane by
 iteration counts and β exactly.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -186,7 +188,6 @@ def test_quadruped_newton_matches():
     ref = jfrom_gait(jquadruped, env, load_gait("quadruped", "gait2"),
                      update_friction=True)
     obj = jquadruped_weights(jd, H_MPC, jnp.float64)
-    import dataclasses
     n_opts = dataclasses.replace(cfg.newton_options(), max_iter=2)
     tlin = linearize_trajectory(quadruped, pt.flat_2d_lc,
                                 interop.contact_traj(ref, device="cpu"),
@@ -234,3 +235,72 @@ def test_assembler_matches(hopper_ref, mode):
                           torch.as_tensor(nu)[None])
     np.testing.assert_allclose(got_j[0].numpy(), want_j, rtol=0, atol=1e-9)
     np.testing.assert_allclose(got_r[0].numpy(), want_r, rtol=0, atol=1e-9)
+
+
+def _force_solve(dtype):
+    """tests/test_newton_f32_force.py's solve in both packages: the 2D hopper,
+    H = 10, configuration-force mode with the reference's 1e-100 γ/b weights
+    (0 in float32), the shipped "ldl" KKT solver (which both packages leave
+    for a pivoted LU in float32 force mode), one lane from the in-place
+    gait moved by (0, 0.03, 0.01, 0). Every input is JAX's, in ``dtype``."""
+    env, h, mode = ci.flat_2d_lc, H_MPC, CONFIGURATION_FORCE
+    jd = ci.dims_of(jhopper, env)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
+    ref = jfrom_gait(jhopper, env, load_gait("hopper_2D", "gait_in_place"),
+                     kappa=1e-4, dtype=jdt)
+    lin = jlinearize(jhopper, env, ref, 1e-4)
+    lin = type(lin)(*(x[:h] for x in lin))
+    obj = jtracking(jd, h, q=np.tile(1e-1 * np.array([0.1, 3, 1, 3]), (h, 1)),
+                    u=np.tile([1e-3, 1e0], (h, 1)),
+                    gamma=1e-100 * np.ones((h, jd.nc)),
+                    b=1e-100 * np.ones((h, jd.nb)), dtype=jdt)
+    window = _slice_horizon(ref, h)
+    nu0 = jnp.zeros((h, nd_of(jd, mode)), jdt)
+    shift = jnp.asarray([0.0, 0.03, 0.01, 0.0], jdt)
+    q0, q1 = ref.q[0] + shift, ref.q[1] + shift
+    ip_opts = dataclasses.replace(jdefault_opts(1e-4, max_iter=30),
+                                  refine=1 if dtype == torch.float32 else 0)
+    n_opts = JNewtonOptions(r_tol=3e-4, max_iter=8, kkt_solver="ldl")
+    want = jax.jit(lambda: jnewton(
+        jd, mode, JNewtonAssembler(jd, h, mode), obj, lin, window, window,
+        nu0, q0, q1, jnp.zeros((jd.nc,), jdt), ip_opts, n_opts))()
+
+    dims = pt.Dims(nq=jd.nq, nu=jd.nu, nw=jd.nw, nc=jd.nc, nf=jd.nf, ne=jd.ne)
+    conv = dict(dtype=dtype, device="cpu")
+    twin = interop.contact_traj(window, **conv)
+    t = lambda x: torch.as_tensor(np.array(x))[None]
+    got = newton_solve(
+        dims, mode, NewtonAssembler(dims, h, mode),
+        interop.objective(obj, **conv), interop.linearized_data(lin, **conv),
+        twin, expand_traj(twin, (1,)), t(nu0), t(q0), t(q1),
+        torch.zeros((1, jd.nc), dtype=dtype), interop.ip_options(ip_opts),
+        interop.newton_options(n_opts))
+    n_total = h * (jd.nu + jd.nc + jd.nb + 2 * jd.nq + jd.nc + jd.nb)
+    return got, want, n_total
+
+
+# How far two float32 force-mode solves may part: the port's and JAX's pivoted
+# LUs (LAPACK's getrf and XLA's) round apart. Measured on this solve (one
+# Newton iteration in both, |u| ≤ 0.62): the two float32 u within 8.3e-7 of
+# each other, each 1.7e-4 from its package's float64 u. The bound sits 12×
+# over the spread of the two float32 solves and under their float32 error.
+F32_FORCE_U_TOL = 1e-5
+
+
+def test_hopper_newton_f32_force_mode():
+    """Float32 configuration-force mode (tests/test_newton_f32_force.py), held
+    as that file holds JAX: a finite step, at least one Newton iteration,
+    within 0.2 of the float64 solve, the per-row residual under 2 r_tol;
+    and within ``F32_FORCE_U_TOL`` of JAX's float32 solve."""
+    got32, want32, n_total = _force_solve(torch.float32)
+    got64, _, _ = _force_solve(torch.float64)
+    assert got32.traj.u.dtype == torch.float32
+    assert bool(torch.isfinite(got32.traj.u).all())
+    assert np.isfinite(float(got32.r_norm[0]))
+    assert int(got32.iterations[0]) >= 1
+    du = (got32.traj.u[0].double() - got64.traj.u[0]).abs()
+    assert float(du.max()) < 0.2, float(du.max())
+    assert float(got32.r_norm[0]) / n_total < 2 * 3e-4
+    np.testing.assert_allclose(got32.traj.u[0].numpy(),
+                               np.asarray(want32.traj.u), rtol=0,
+                               atol=F32_FORCE_U_TOL)

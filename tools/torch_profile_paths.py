@@ -1,7 +1,13 @@
 """Where one control period of each of chip_smoke.py's six paths spends
 the device's time, on the GPU.
 
-    python3 tools/torch_profile_paths.py
+    python3 tools/torch_profile_paths.py [--paths ABCDEF] [--steps N]
+
+``--paths`` picks the paths by letter (all six by default). ``--steps N``
+also times one unprofiled run of N sim steps of each picked path on the
+host clock (``steps_wall_s``; N a multiple of the path's period), after its
+period's profile: ``--paths E --steps 50`` gives path E's wall at 50 steps
+beside its kernels a period.
 
 For path A (quadruped, structure-mode Newton), path B (2D hopper,
 ``simulate`` + ``ci_mpc_policy``, direct-mode Newton), path C (quadruped,
@@ -20,6 +26,7 @@ the host's side of each as well takes many minutes); the profiler still
 slows the host, so the busy share is taken against the unprofiled wall.
 """
 
+import argparse
 import json
 import os
 import re
@@ -37,14 +44,29 @@ from contactimplicitmpc_tpu_torch.hotpath import (  # noqa: E402
     HotPathConfig, conf_initial_states, make_quadruped_rollout)
 
 
-def quadruped_period(cfg, dev):
-    roll, ref, model, _, _ = make_quadruped_rollout(cfg, cfg.n_sample,
-                                                    torch.float32, device=dev)
-    q1s, v1s = conf_initial_states(model, ref)
-    return lambda: roll(q1s, v1s)
+def quadruped_run(cfg, dev):
+    """(run of n steps, steps a period) of a quadruped path."""
+    def run(n):
+        roll, ref, model, _, _ = make_quadruped_rollout(
+            cfg, n, torch.float32, device=dev)
+        q1s, v1s = conf_initial_states(model, ref)
+        return lambda: roll(q1s, v1s)
+    return run, cfg.n_sample
+
+
+def general_run(rollout):
+    """(run of n steps, steps a period) from one of chip_smoke's
+    ``*_rollout`` tuples (roll, ref, n_sample, ...)."""
+    roll, _, n_sample = rollout[:3]
+    return (lambda n: (lambda: roll(n))), n_sample
 
 
 def main():
+    parser = argparse.ArgumentParser(
+        description="one profiled control period of chip_smoke's paths")
+    parser.add_argument("--paths", default="ABCDEF")
+    parser.add_argument("--steps", type=int, default=0)
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_paths: CUDA is not available")
     dev = torch.device("cuda")
@@ -52,24 +74,24 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
-    hopper_roll, _, n_sample, _ = chip_smoke.hopper_rollout(dev)
-    centroidal_roll, _, n_sample_d, _ = chip_smoke.centroidal_rollout(dev)
-    flamingo_roll, _, n_sample_e, _, _ = chip_smoke.flamingo_rollout(dev)
-    hopper3d_roll, _, n_sample_f, _ = chip_smoke.hopper3d_rollout(dev)
-    paths = {
-        "A quadruped structure": quadruped_period(HotPathConfig(), dev),
-        "B hopper_2d simulate+ci_mpc_policy direct":
-            lambda: hopper_roll(n_sample),
-        "C quadruped direct": quadruped_period(
-            HotPathConfig(newton_mode="direct"), dev),
-        "D centroidal_quadruped mpc_rollout direct":
-            lambda: centroidal_roll(n_sample_d),
-        "E flamingo mpc_rollout direct, slope":
-            lambda: flamingo_roll(n_sample_e),
-        "F hopper_3d simulate+ci_mpc_policy direct":
-            lambda: hopper3d_roll(n_sample_f)}
-    steps = {"E": n_sample_e, "F": n_sample_f}
-    for name, period in paths.items():
+    by_letter = {
+        "A": ("A quadruped structure",
+              lambda: quadruped_run(HotPathConfig(), dev)),
+        "B": ("B hopper_2d simulate+ci_mpc_policy direct",
+              lambda: general_run(chip_smoke.hopper_rollout(dev))),
+        "C": ("C quadruped direct",
+              lambda: quadruped_run(HotPathConfig(newton_mode="direct"),
+                                    dev)),
+        "D": ("D centroidal_quadruped mpc_rollout direct",
+              lambda: general_run(chip_smoke.centroidal_rollout(dev))),
+        "E": ("E flamingo mpc_rollout direct, slope",
+              lambda: general_run(chip_smoke.flamingo_rollout(dev))),
+        "F": ("F hopper_3d simulate+ci_mpc_policy direct",
+              lambda: general_run(chip_smoke.hopper3d_rollout(dev)))}
+    for letter in args.paths:
+        name, build = by_letter[letter]
+        run, n_period = build()
+        period = run(n_period)
         period()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -85,9 +107,18 @@ def main():
         knot = [e for e in kernels
                 if re.search(r"knot_(ip|pack)(_wide)?_kernel", e.key)]
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+        steps_wall = None
+        if args.steps:
+            long_run = run(args.steps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            long_run()
+            torch.cuda.synchronize()
+            steps_wall = time.perf_counter() - t0
         print(json.dumps({
             "path": name, "card": card, "lanes": 16,
-            "steps": steps.get(name[0], 5),
+            "steps": n_period, "steps_run": args.steps or None,
+            "steps_wall_s": steps_wall,
             "wall_s": wall, "device_busy_s": busy,
             "device_busy_share_of_wall": busy / wall,
             "kernels_launched": sum(e.count for e in kernels),
