@@ -49,12 +49,17 @@ Phases (any failure raises and the script exits non-zero):
    16 × 1 × K and 3;
 7. path A — the flat-ground quadruped closed-loop MPC rollout at the
    HotPathConfig defaults (structure-mode Newton), float32, 16 lanes × 100
-   sim steps (tests/test_hotpath.py's depth), with the
-   kernel's launch counter read around it and the
-   closed-loop health checked as tests/test_hotpath.py checks the JAX
-   package: the same 16 lanes (``hotpath.conf_initial_states``), the
-   nominal lane inside the reference CI thresholds, at least 90% of lanes
-   with ≥ 95% converged sim steps;
+   sim steps (tests/test_hotpath.py's depth), run as a Monte-Carlo sweep
+   through ``parallel.make_sharded_mpc_rollouts`` on ``make_mesh()`` (a
+   process group of one rank, NCCL), with the kernel's launch counter read
+   around it and the closed-loop health checked as tests/test_hotpath.py
+   checks the JAX package: the same 16 lanes
+   (``hotpath.conf_initial_states``), the nominal lane inside the reference
+   CI thresholds, at least 90% of lanes with ≥ 95% converged sim steps; the
+   sweep's ``MPCSweepStats`` equal the same quantities taken from its lanes
+   (within 1e-6 of max(1, |x|)), and ``plot_runs_2d`` draws the 16 lanes
+   (CUDA tensors) into a temporary PNG (where matplotlib is not installed,
+   as on the card's machine, its skeleton lines only);
 8. path B — the general path on the 2D hopper, the configuration of
    examples/hopper_monte_carlo.py: ``simulate`` driven by
    ``ci_mpc_policy`` with direct-mode Newton (8 fixed knot iterations, so
@@ -88,14 +93,11 @@ Phases (any failure raises and the script exits non-zero):
    template, altitude update at 0.02, a warm-start floor of 1e-2, adaptive
    float32 sim solves: r_tol 1e-3, κ_tol 1e-5, 40 iterations, as the
    example's 1e-8 is out of float32's reach), 16 lanes ×
-   10 sim steps: lane 0 nominal, lanes 1-15 the torso moved and tilted
-   (assets/flamingo_offsets16.npz, tools/flamingo_lanes_reference.py). The
-   nominal lane converges every step, moves up the slope, keeps its torso
-   0.4 above the terrain and its |angle| under 0.5; at most one lane fewer
-   than the JAX package's 16 converges every step. E runs ``E_STEPS`` sim
-   steps once (its period costs the most of any path's), then its first
-   period again with the spans on and a device-only trace that counts the
-   kernels it launches;
+   ``E_STEPS`` sim steps: lane 0 nominal, lanes 1-15 the torso moved and
+   tilted (assets/flamingo_offsets16.npz, tools/flamingo_lanes_reference.py).
+   The nominal lane converges every step, moves up the slope, keeps its
+   torso 0.4 above the terrain and its |angle| under 0.5; at most one lane
+   fewer than the JAX package's 16 converges every step;
 12. path F — the 3D hopper hopping forward: ``simulate`` driven by
    ``ci_mpc_policy`` in tests/test_mpc_hopper_3d.py's configuration
    (gait_forward on flat_3d_lc, configuration mode, a 340 × 340 KKT a
@@ -106,9 +108,16 @@ Phases (any failure raises and the script exits non-zero):
    nominal lane converges every step and travels forward more than half
    the reference's stride over the same knots; at most one lane fewer
    than the JAX package's 16 converges every step;
-13. spans — each path once more for 2 control periods (E and F: 1; E's
-   traced) with host-synchronised spans on (sim IP, Newton, of it the KKT
-   solve and the knot kernel);
+13. path I — the point-foot quadruped (18 DoF, 3D) standing under a lateral
+   push: ``mpc_rollout`` in tests/test_mpc_point_foot.py's push-recovery
+   configuration (stand_v0 on flat_3d_lc, configuration mode, a 480 × 480
+   KKT a lane, fixed 8-iteration knot solves on the block template's
+   (18, 24, 53, 4) instantiation, the push w[40:45] = (0, 5, 1) / 5, path
+   D's float32 sim options), 16 lanes × 80 sim steps
+   (assets/point_foot_offsets16.npz, tools/point_foot_lanes_reference.py):
+   the nominal lane converges every step and ends within 0.05 of the
+   reference's height and 0.1 of its lateral position; at most one lane
+   fewer than the JAX package's 16 converges every step;
 14. path G — the nonlinear (second-order) friction cone: the 3D particle on
    flat_3d_nc through ``simulate`` (the dense LU of the exact Jacobian),
    float64, 16 lanes × 150 steps sliding from height 1
@@ -117,12 +126,22 @@ Phases (any failure raises and the script exits non-zero):
 15. path H — the Raibert baseline: ``raibert_policy`` on the 2D hopper
    through ``simulate``, float64, 16 lanes × 100 steps (``raibert_path``:
    every step converges, the nominal lane lands and takes off), and one
-   TVLQR ``reference_gains`` on the card held to the CPU's. G and H use
-   no MPC and launch no knot kernel.
+   TVLQR ``reference_gains`` on the card held to the CPU's;
+16. phase J — two processes (this script with ``--sweep-worker``) share
+   the card, joined by gloo (NCCL refuses two ranks on one GPU), and run
+   ``parallel.sharded_rollout_stats`` on the 2D particle
+   (tests/test_parallel.py's 16 lanes, 30 steps of 0.01, float64), held to
+   ``monte_carlo_rollouts`` of the same lanes in this process: 16
+   rollouts, every one a success, the mean final q within 1e-10. A
+   worker's failure fails the script. G, H and J use no MPC and launch no
+   knot kernel.
+
+The spans and device traces of one control period of each MPC path are
+tools/torch_profile_paths.py's.
 
 JSON lines give the bound and the kernel's share of it at each timed
 shape; the line before the card's name is a JSON object with the kernel's
-comparison, launches (summed over the six paths, and by path), times and
+comparison, launches (summed over the seven MPC paths, and by path), times and
 bound at path A's N = 1008 and, in ``instantiations``, each of the ten
 with its dimensions, template, models, paths and launches and its time,
 plain time, bound and share at its path's N; the last line is
@@ -130,15 +149,17 @@ plain time, bound and share at its path's N; the last line is
 """
 
 import dataclasses
+import importlib.util
 import json
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 import contactimplicitmpc_tpu_torch as pt
 from contactimplicitmpc_tpu_torch.control.gains import reference_gains
@@ -154,6 +175,7 @@ from contactimplicitmpc_tpu_torch.control.policy import CIMPCOptions
 from contactimplicitmpc_tpu_torch.control.raibert import raibert_policy
 from contactimplicitmpc_tpu_torch.control.trajectory import (
     ContactTraj, from_gait, initial_conditions, tracking_errors)
+from contactimplicitmpc_tpu_torch.device import describe
 from contactimplicitmpc_tpu_torch.env import (flat_2d_lc, flat_2d_nc,
                                               flat_3d_lc, flat_3d_nc,
                                               slope_smooth_2d_lc)
@@ -169,13 +191,21 @@ from contactimplicitmpc_tpu_torch.models.hopper_2d import hopper_2d
 from contactimplicitmpc_tpu_torch.models.hopper_3d import hopper_3d
 from contactimplicitmpc_tpu_torch.models.particle import particle
 from contactimplicitmpc_tpu_torch.models.particle_2d import particle_2d
+from contactimplicitmpc_tpu_torch.models.point_foot_quadruped import \
+    point_foot_quadruped
 from contactimplicitmpc_tpu_torch.ops import knot_ip as knot_mod
 from contactimplicitmpc_tpu_torch.ops.fixed_ip import linearized_ip_fixed
 from contactimplicitmpc_tpu_torch.ops.knot_ip import knot_ip
+from contactimplicitmpc_tpu_torch.parallel import (distributed, make_mesh,
+                                                   make_sharded_mpc_rollouts,
+                                                   monte_carlo_rollouts,
+                                                   sharded_rollout_stats)
 from contactimplicitmpc_tpu_torch.sim.interior_point import IPOptions
 from contactimplicitmpc_tpu_torch.sim.simulator import default_sim_options
-from contactimplicitmpc_tpu_torch.utils import spans
 from contactimplicitmpc_tpu_torch.utils.gaits import load_gait
+from contactimplicitmpc_tpu_torch.utils.visuals import (plot_runs_2d,
+                                                       runs_2d_lines,
+                                                       skeleton_2d)
 
 # Tolerances of the kernel against the plain version, float32, set from the
 # spread between two correct float32 implementations (the JAX package's and
@@ -252,6 +282,15 @@ SHARES["flamingo"] = {"conv_agree": 0.97, "q2_share": 0.97, "z_share": 0.85,
 # / 0.134. The port may lose one lane.
 FLAMINGO_JAX_OK = 16
 HOPPER3D_JAX_OK = 16
+# Path I's lanes in the JAX package (tools/point_foot_lanes_reference.py,
+# float32 on the CPU, the same 16 lanes × 80 steps, push and fixed
+# 8-iteration knot solves): all 16 converge every sim step; the nominal
+# lane ends 0.00024 from the reference's height and 0.0725 from its lateral
+# position (tests/test_mpc_point_foot.py's bounds 0.05 and 0.1), 2.20
+# Newton iterations a period, 2.73 sim iterations a step. The port may lose
+# one lane.
+POINT_FOOT_JAX_OK = 16
+I_STEPS = 80
 QUADRUPED_SHARES = {"conv_agree": CONV_AGREE, "q2_share": Q2_SHARE,
                     "z_share": Z_SHARE, "dz_share": DZ_SHARE}
 # The prologue's products and inverse against the plain packing: both sum
@@ -265,13 +304,6 @@ PACK_EXACT = ("rza", "dy1", "ry1d", "ry2", "z0", "r0", "theta0", "rtheta0")
 E_STEPS = 50
 
 SPIN_CYCLES = 60_000_000   # ≈ 35 ms of device spin ahead of timed launches
-
-
-def card():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps, spin=False):
@@ -296,6 +328,7 @@ HOPPER_OFFSETS = os.path.join(ASSETS, "hopper_offsets16.npz")
 CENTROIDAL_OFFSETS = os.path.join(ASSETS, "centroidal_offsets16.npz")
 FLAMINGO_OFFSETS = os.path.join(ASSETS, "flamingo_offsets16.npz")
 HOPPER3D_OFFSETS = os.path.join(ASSETS, "hopper3d_offsets16.npz")
+POINT_FOOT_OFFSETS = os.path.join(ASSETS, "point_foot_offsets16.npz")
 KNOT_STATES = os.path.join(ASSETS, "knot_states.npz")
 
 
@@ -525,27 +558,68 @@ def counted(fn):
     return out, knot_ip.launches, time.time() - t0
 
 
-def spanned(fn):
-    """Run ``fn`` with host-synchronised spans on: ({name: (s, n)}, wall)."""
-    torch.cuda.synchronize()
-    spans.start()
+def sweep_stats_direct(res, ref, n_sample):
+    """``MPCSweepStats``'s quantities computed from the lanes ``res`` on
+    the host in float64, over every lane (the tracking errors and the
+    residual over the lanes that converged every step)."""
+    ok = res.sim_converged.all(dim=1).cpu().numpy()
+    errs = [e.double().cpu().numpy() for e in tracking_errors(
+        ref, res.q, res.u, res.gamma, res.b, n_sample, (0,))]
+    n_ok = max(int(ok.sum()), 1)
+    per_lane = lambda x: x.double().mean(dim=1).cpu().numpy()
+    return {"n_rollouts": float(len(ok)), "success_rate": float(ok.mean()),
+            **{k: float((e * ok).sum() / n_ok) for k, e in zip(
+                ("q_err", "u_err", "gamma_err", "b_err"), errs)},
+            "mean_newton_iters": float(per_lane(res.newton_iterations).mean()),
+            "mean_sim_iters": float(per_lane(res.sim_iterations).mean()),
+            "mean_r_norm": float((per_lane(res.mpc_r_norm) * ok).sum() / n_ok)}
+
+
+def check_sweep(stats, res, ref, n_sample, path, tag):
+    """The sweep's ``MPCSweepStats`` (float32 sums over the mesh) against
+    the same quantities taken from its lanes: within 1e-6 of max(1, |x|)."""
+    want = sweep_stats_direct(res, ref, n_sample)
+    got = {k: float(v) for k, v in stats._asdict().items()}
+    print(f"{path}: MPCSweepStats {json.dumps(got)}; from the lanes "
+          f"{json.dumps(want)} {tag}", flush=True)
+    assert got["n_rollouts"] == res.q.shape[0] == 16, got
+    for k, x in want.items():
+        assert abs(got[k] - x) <= 1e-6 * max(1.0, abs(x)), (k, got[k], x)
+
+
+def plot_lanes(model, res, steps, path, tag):
+    """``plot_runs_2d`` of the lanes (CUDA tensors) into a temporary PNG.
+    Where matplotlib is not installed (the card's machine has none), the
+    figure's geometry only: the skeletons it would draw, from the same
+    CUDA tensors, finite and one set a drawn pose."""
     t0 = time.time()
-    fn()
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    return spans.stop(), wall
+    stride = max(1, steps // 8)
+    if importlib.util.find_spec("matplotlib") is None:
+        lines = runs_2d_lines(model, res.q, stride)
+        poses = res.q.shape[0] * len(range(0, res.q.shape[1], stride))
+        per_pose = len(skeleton_2d(model, res.q[0, 0]))
+        print(f"{path}: matplotlib is not installed: no PNG; the "
+              f"{len(lines)} skeleton lines plot_runs_2d draws for "
+              f"{poses} poses of the {res.q.shape[0]} lanes in "
+              f"{time.time() - t0:.2f} s {tag}", flush=True)
+        assert len(lines) == per_pose * poses, (len(lines), poses)
+        assert all(np.isfinite(line).all() for _, line in lines)
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        png = plot_runs_2d(model, res.q, env=flat_2d_lc,
+                           path=os.path.join(tmp, "runs.png"), stride=stride)
+        size = os.path.getsize(png)
+    print(f"{path}: plot_runs_2d of the {res.q.shape[0]} lanes, {size} bytes "
+          f"in {time.time() - t0:.2f} s {tag}", flush=True)
+    assert size > 0
 
 
-def print_spans(path, what, got, wall, tag):
-    parts = ", ".join(f"{k} {v[0]:.3f} s in {v[1]} entries"
-                      for k, v in sorted(got.items()))
-    print(f"{path} spans ({what}, synchronised; newton holds kkt_solve and "
-          f"knot_ip): wall {wall:.3f} s; {parts} {tag}", flush=True)
-
-
-def quadruped_path(path, cfg, steps, dev, tag):
+def quadruped_path(path, cfg, steps, dev, tag, sweep=False):
     """A quadruped rollout through ``make_quadruped_rollout`` with the
-    health checks of tests/test_hotpath.py; returns the launches."""
+    health checks of tests/test_hotpath.py; returns the launches. With
+    ``sweep`` the rollout runs through ``parallel.make_sharded_mpc_rollouts``
+    on ``make_mesh()`` (a process group of one rank, NCCL), its
+    ``MPCSweepStats`` are held to the lanes', and the lanes are plotted."""
     rollout, ref, model, _, _ = make_quadruped_rollout(
         cfg, steps, torch.float32, device=dev)
     q1s, v1s = conf_initial_states(model, ref)
@@ -558,7 +632,12 @@ def quadruped_path(path, cfg, steps, dev, tag):
     print(f"{path}: warm-up (2 periods) {time.time() - t0:.2f} s {tag}",
           flush=True)
 
-    res, launches, wall = counted(lambda: rollout(q1s, v1s))
+    if sweep:
+        run = make_sharded_mpc_rollouts(make_mesh(), rollout, ref,
+                                        cfg.n_sample)
+        (res, stats), launches, wall = counted(lambda: run(q1s, v1s))
+    else:
+        res, launches, wall = counted(lambda: rollout(q1s, v1s))
     check_outputs(res)
     n_ctrl = steps // cfg.n_sample
     assert launches >= n_ctrl, (launches, n_ctrl)
@@ -579,9 +658,9 @@ def quadruped_path(path, cfg, steps, dev, tag):
           f"sim iterations {float(res.sim_iterations.float().mean()):.3f}, "
           f"knot_ip launches {launches} {tag}", flush=True)
     assert success >= 0.9, per_lane.tolist()
-    got, span_wall = spanned(lambda: short(q1s, v1s))
-    print_spans(path, f"{lanes} lanes x {2 * cfg.n_sample} steps", got,
-                span_wall, tag)
+    if sweep:
+        check_sweep(stats, res, ref, cfg.n_sample, path, tag)
+        plot_lanes(model, res, steps, path, tag)
     return launches
 
 
@@ -658,9 +737,6 @@ def hopper_path(dev, tag):
     assert abs(final[0]) < 0.5 and 0.0 < final[1] < 1.0, final
     # the JAX package converges every step of all 16 lanes; one may tip
     assert int(ok.sum()) >= lanes - 1, ok.tolist()
-    got, span_wall = spanned(lambda: roll(2 * n_sample))
-    print_spans("path B", f"{lanes} lanes x {2 * n_sample} steps", got,
-                span_wall, tag)
     return launches
 
 
@@ -747,9 +823,6 @@ def centroidal_path(dev, tag):
     assert errs[0] < 0.05, errs
     assert float(low[0]) > 0.5 * ref_low, (float(low[0]), ref_low)
     assert int(ok.sum()) >= CENTROIDAL_JAX_OK - 1, ok.tolist()
-    got, span_wall = spanned(lambda: roll(2 * n_sample))
-    print_spans("path D", f"{lanes} lanes x {2 * n_sample} steps", got,
-                span_wall, tag)
     return launches
 
 
@@ -900,9 +973,7 @@ def hopper3d_rollout(dev):
 
 def flamingo_path(dev, tag, steps):
     """Path E: ``flamingo_rollout`` for ``steps`` sim steps with the health
-    tests/test_mpc_flamingo_slope.py checks; returns the launches. Then its
-    first control period again with the spans on and a device-only trace
-    that counts the kernels it launches."""
+    tests/test_mpc_flamingo_slope.py checks; returns the launches."""
     roll, ref, n_sample, sim_env, lanes = flamingo_rollout(dev)
     res, launches, wall = counted(lambda: roll(steps))
     check_outputs(res)
@@ -929,16 +1000,6 @@ def flamingo_path(dev, tag, steps):
     assert float(clearance[0]) > 0.4, float(clearance[0])
     assert float(angle[0]) < 0.5, float(angle[0])
     assert int(ok.sum()) >= FLAMINGO_JAX_OK - 1, ok.tolist()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        got, span_wall = spanned(lambda: roll(n_sample))
-    kernels = sum(e.count for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"path E: kernels launched a control period {kernels} (the first "
-          f"period again, a device-only trace), mean sim iterations a step "
-          f"{float(res.sim_iterations.float().mean()):.3f} over the {steps} "
-          f"steps {tag}", flush=True)
-    print_spans("path E", f"{lanes} lanes x {n_sample} steps", got,
-                span_wall, tag)
     return launches
 
 
@@ -977,10 +1038,175 @@ def hopper3d_path(dev, tag, steps):
     assert bool(ok[0]), "nominal lane sim failed"
     assert float(travel[0]) > half_stride, (float(travel[0]), half_stride)
     assert int(ok.sum()) >= HOPPER3D_JAX_OK - 1, ok.tolist()
-    got, span_wall = spanned(lambda: roll(n_sample))
-    print_spans("path F", f"{lanes} lanes x {n_sample} steps", got,
-                span_wall, tag)
     return launches
+
+
+def point_foot_push(n_steps, nw):
+    """tests/test_mpc_point_foot.py's lateral body push over ``n_steps``
+    sim steps: w[40:45] = (0, 5, 1) / 5."""
+    w = np.zeros((n_steps, nw))
+    w[40:45] = np.array([0.0, 5.0, 1.0]) / 5.0
+    return w
+
+
+def point_foot_rollout(dev):
+    """Path I's rollout, tests/test_mpc_point_foot.py's push recovery:
+    (roll, ref, n_sample, lanes) with ``roll(n_steps)`` the ``mpc_rollout``
+    (the stand_v0 gait on flat_3d_lc, direct-mode Newton in configuration
+    mode, the test's knot options with fixed 8-iteration knot solves, a
+    warm-start floor of 1e-2, ``point_foot_push``) of the 16 lanes of
+    ``POINT_FOOT_OFFSETS``. The sim solves are path D's float32 adaptive
+    ones (r_tol 1e-3, κ_tol 1e-5, 40 iterations): the test's 1e-8 is out of
+    float32's reach."""
+    model, env = point_foot_quadruped, flat_3d_lc
+    dims = dims_of(model, env)
+    dtype = torch.float32
+    n_sample, h_mpc, kappa = 5, 10, 2.0e-4
+    ref = from_gait(model, env, load_gait("point_foot_quadruped", "stand_v0"),
+                    update_friction=True, dtype=dtype, device=dev)
+    # flat_trot.jl:38-42, diagonalized (the test's weights)
+    v_w = 1e-3 * np.concatenate([np.ones(3), 1e3 * np.ones(3), np.ones(12)])
+    q_body = np.array([1e-2, 1e-2, 1.0]) + 4.0 * np.array([0.2, 0.2, 1.0])
+    q_w = np.concatenate([q_body, 0.3 * np.ones(3),
+                          np.tile([0.2, 0.2, 1.0], 4)])
+    obj = tracking_velocity_objective(dims, h_mpc, q=q_w, v=v_w,
+                                      u=3e-3 * np.ones(dims.nu), dtype=dtype,
+                                      device=dev)
+    mpc_ip = IPOptions(r_tol=1e-4, kappa_tol=kappa, max_iter=30,
+                       undercut=5.0, gamma_reg=0.1, diff_sol=True, max_ls=3)
+    _, sim_opts, n_opts = centroidal_options(kappa)
+    q1s, v1s = lanes_of(*initial_conditions(ref), POINT_FOOT_OFFSETS)
+
+    def roll(n_steps):
+        return mpc_rollout(model, env, ref, obj, n_steps, h_mpc, n_sample,
+                           kappa, CONFIGURATION, q1s, v1s, n_opts=n_opts,
+                           ip_opts=mpc_ip, sim_opts=sim_opts,
+                           warm_start_floor=1e-2,
+                           w=point_foot_push(n_steps, dims.nw))
+
+    return roll, ref, n_sample, q1s.shape[0]
+
+
+def point_foot_path(dev, tag):
+    """Path I: ``point_foot_rollout`` for ``I_STEPS`` sim steps with
+    tests/test_mpc_point_foot.py::test_point_foot_stand_push_recovery's
+    three checks on the nominal lane (every step converged, the last
+    configuration's height within 0.05 and lateral position within 0.1 of
+    the reference's ``q[1]``); at most one lane fewer than the JAX
+    package's converges every step; returns the launches."""
+    roll, ref, n_sample, lanes = point_foot_rollout(dev)
+    t0 = time.time()
+    roll(n_sample)
+    torch.cuda.synchronize()
+    print(f"path I: warm-up (1 period) {time.time() - t0:.2f} s {tag}",
+          flush=True)
+
+    res, launches, wall = counted(lambda: roll(I_STEPS))
+    check_outputs(res)
+    ok = res.sim_converged.all(dim=1)
+    q_end = res.q[:, -1]
+    dz = (q_end[:, 2] - ref.q[1, 2]).abs()
+    dy = (q_end[:, 1] - ref.q[1, 1]).abs()
+    print(f"path I (point_foot_quadruped stand, lateral push, mpc_rollout "
+          f"direct): {lanes} lanes x {I_STEPS} steps in {wall:.2f} s = "
+          f"{lanes * I_STEPS / wall:.1f} lane-steps/s {tag}", flush=True)
+    print(f"path I: lanes that converged every step {int(ok.sum())}/{lanes} "
+          f"(JAX: {POINT_FOOT_JAX_OK}/{lanes}), nominal |height error| "
+          f"{float(dz[0]):.5f} (< 0.05; JAX float32 0.00024), nominal "
+          f"|lateral error| {float(dy[0]):.5f} (< 0.1; JAX float32 0.0725), "
+          f"largest over the lanes {float(dz.max()):.5f} / "
+          f"{float(dy.max()):.5f}, mean Newton iterations "
+          f"{float(res.newton_iterations.float().mean()):.3f}, mean sim "
+          f"iterations {float(res.sim_iterations.float().mean()):.3f}, "
+          f"knot_ip launches {launches} {tag}", flush=True)
+    assert launches >= I_STEPS // n_sample, launches
+    assert bool(ok[0]), "nominal lane sim failed"
+    assert float(dz[0]) < 0.05, float(dz[0])
+    assert float(dy[0]) < 0.1, float(dy[0])
+    assert int(ok.sum()) >= POINT_FOOT_JAX_OK - 1, ok.tolist()
+    return launches
+
+
+def particle_lanes(dev):
+    """tests/test_parallel.py's 16 lanes of the 2D particle, float64: x
+    spread over [−1, 1] at height 1, at rest."""
+    xs = torch.linspace(-1.0, 1.0, 16, dtype=torch.float64, device=dev)
+    return torch.stack([xs, torch.ones_like(xs)], dim=1), \
+        torch.zeros((16, 2), dtype=torch.float64, device=dev)
+
+
+def sweep_worker():
+    """One rank of phase J (``chip_smoke.py --sweep-worker`` with the
+    CIMPC_* variables set): join the gloo group on the card, run
+    ``sharded_rollout_stats`` of the particle's lanes and print them as one
+    JSON line."""
+    assert distributed.initialize(device="cuda", backend="gloo")
+    mesh = make_mesh()
+    q1, v1 = particle_lanes(torch.device("cuda"))
+    stats = sharded_rollout_stats(mesh, particle_2d, flat_2d_lc, 30, 0.01,
+                                  q1, v1)
+    assert stats.mean_final_q.is_cuda
+    print(json.dumps({"rank": torch.distributed.get_rank(),
+                      "mesh": list(mesh.shape),
+                      **{k: v.tolist() for k, v in stats._asdict().items()}}),
+          flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def two_process_phase(dev, tag):
+    """Phase J: two processes share the card, joined by gloo (NCCL refuses
+    two ranks on one GPU), and run ``sharded_rollout_stats`` on the 2D
+    particle (16 lanes, 30 steps of 0.01, float64), held to
+    ``monte_carlo_rollouts`` of the same lanes here: 16 rollouts, every
+    one a success, the mean final q within 1e-10. A worker's failure fails
+    the phase."""
+    t0 = time.time()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = {k: v for k, v in os.environ.items() if k not in (
+            "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+        env.update(CIMPC_COORDINATOR=f"127.0.0.1:{port}",
+                   CIMPC_NUM_PROCESSES="2", CIMPC_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sweep-worker"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"phase J rank {rank} failed:\n{text}"
+    got = [json.loads(next(line for line in text.splitlines()
+                           if line.startswith('{"rank"'))) for text in outs]
+    local = monte_carlo_rollouts(particle_2d, flat_2d_lc, 30, 0.01,
+                                 *particle_lanes(dev))
+    want = local.q[:, -1].mean(dim=0).cpu().numpy()
+    wall = time.time() - t0
+    err = max(float(np.abs(np.asarray(g["mean_final_q"]) - want).max())
+              for g in got)
+    print(f"phase J (2 processes on the card, gloo, sharded_rollout_stats of "
+          f"the 2D particle, 16 lanes x 30 steps, float64): meshes "
+          f"{[g['mesh'] for g in got]}, n_rollouts "
+          f"{[g['n_rollouts'] for g in got]}, success "
+          f"{[g['success_rate'] for g in got]}, mean final q "
+          f"{got[0]['mean_final_q']} against one process {want.tolist()} "
+          f"(largest difference {err:.3g}), in {wall:.2f} s {tag}",
+          flush=True)
+    for g in got:
+        assert g["mesh"] == [2, 1], g
+        assert g["n_rollouts"] == 16.0 and g["success_rate"] == 1.0, g
+    assert bool(local.converged.all())
+    assert err < 1e-10, err
+    return wall
 
 
 def cone_path(dev, tag):
@@ -1097,7 +1323,7 @@ def main():
     # ---- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
-    name_power = card()
+    name_power = describe("cuda")
     print(name_power, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1176,22 +1402,35 @@ def main():
             converged_only=False)
         phases[name] = (err, times, (16 * 7 * k, k))
 
-    # ---- 9-13. the six paths, each with its spans ----------------------------
+    # ---- 9-14. the seven MPC paths -------------------------------------------
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        walls[name] = time.time() - t0
+        return out
+
     launches = {
-        "A": quadruped_path("path A", cfg, 100, dev, tag),
-        "B": hopper_path(dev, tag),
-        "C": quadruped_path("path C", HotPathConfig(newton_mode="direct"),
-                            25, dev, tag),
-        "D": centroidal_path(dev, tag),
-        "E": flamingo_path(dev, tag, E_STEPS),
-        "F": hopper3d_path(dev, tag, 100)}
-    # ---- 14-15. the nonlinear cone and the Raibert baseline: no MPC, no
-    # knot kernel ----------------------------------------------------------
-    cone_path(dev, tag)
-    raibert_path(dev, tag)
+        "A": timed("A", quadruped_path, "path A", cfg, 100, dev, tag, True),
+        "B": timed("B", hopper_path, dev, tag),
+        "C": timed("C", quadruped_path, "path C",
+                   HotPathConfig(newton_mode="direct"), 25, dev, tag),
+        "D": timed("D", centroidal_path, dev, tag),
+        "E": timed("E", flamingo_path, dev, tag, E_STEPS),
+        "F": timed("F", hopper3d_path, dev, tag, 100),
+        "I": timed("I", point_foot_path, dev, tag)}
+    # ---- 15-17. the nonlinear cone, the Raibert baseline and the
+    # two-process sweep: no MPC, no knot kernel ------------------------------
+    timed("G", cone_path, dev, tag)
+    timed("H", raibert_path, dev, tag)
+    timed("J", two_process_phase, dev, tag)
+    print("phase walls (s, each with its warm-up and checks): "
+          + json.dumps({k: round(v, 2) for k, v in walls.items()})
+          + f" {tag}", flush=True)
     paths_of = {"quadruped": "AC", "hopper_2D": "B",
                 "centroidal_quadruped": "D", "flamingo": "E",
-                "hopper_3D": "F"}
+                "hopper_3D": "F", "point_foot_quadruped": "I"}
 
     bounds = [{"model": name, "n": n, "knots": k, "ms": t[0],
                "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
@@ -1209,7 +1448,7 @@ def main():
             name = next(m for m in models if m in phases)
             err, times, main_nk = phases[name]
             t = times[main_nk]
-            paths = paths_of.get(name, "")
+            paths = "".join(paths_of.get(m, "") for m in models)
             instantiations.append({
                 "dims": list(dims), "template": template,
                 "models": list(models), "n": main_nk[0], "knots": main_nk[1],
@@ -1230,11 +1469,14 @@ def main():
         "instantiations": instantiations}]}))
     print(f"chip_smoke: every phase after the device check in "
           f"{time.time() - t_start:.1f} s {tag}", flush=True)
-    print(card())
+    torch.distributed.destroy_process_group()
+    print(describe("cuda"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--sweep-worker"]:
+        sys.exit(sweep_worker())
     sys.exit(main())

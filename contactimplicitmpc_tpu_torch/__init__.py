@@ -6,8 +6,13 @@ tensors with an explicit leading batch axis. The entry points that make
 tensors take ``device`` and put them on the GPU when it is left out
 (``default_device``; it raises where there is no GPU, and ``device="cpu"``
 asks for the CPU); functions that receive tensors follow their inputs.
-The JAX package's one TPU kernel, the batched knot interior-point solve, is a hand-written CUDA kernel for Hopper
-(``csrc/knot_ip.cu``, wrapper ``ops/knot_ip.py``).
+The JAX package's one TPU kernel, the batched knot interior-point solve, is
+a hand-written CUDA kernel for Hopper (``csrc/knot_ip.cu``, wrapper
+``ops/knot_ip.py``). ``parallel/`` splits a Monte-Carlo sweep's lanes over
+the ranks of a ``torch.distributed`` process group (one process a GPU)
+and reduces its statistics with one all-reduce; ``utils/`` holds the gait
+loader, the spans, and the visuals (``visuals.py``, ``meshes.py``,
+``live.py``: matplotlib figures and animations of port tensors).
 """
 
 import torch as _torch

@@ -3,6 +3,8 @@ not say: on the NVIDIA GPU, never silently on the CPU."""
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -19,3 +21,18 @@ def default_device() -> torch.device:
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``, the default one for ``None``."""
     return default_device() if device is None else torch.device(device)
+
+
+def describe(device) -> str:
+    """What to print beside a measurement taken on ``device``: a card's
+    name and power limit as ``nvidia-smi`` gives them, or ``"cpu"``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         f"--id={index}"], capture_output=True, text=True, check=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0]

@@ -216,11 +216,13 @@ def simulate(model: Model, env, horizon: int, h: float, q1, v1, policy=None,
 
     Equivalent of ``simulator(...)`` + ``simulate!(sim, q1, v1)``
     (simulator.jl:15-63). ``q0 = q1 − h v1`` seeds the two-configuration
-    state of the variational integrator. Live plotting is not ported:
-    passing a ``live_plotter`` raises.
+    state of the variational integrator.
+
+    ``live_plotter`` (``utils.live.LivePlotter``) receives each step's
+    ``(t, q2, u, gamma)`` of every lane (B, ·) and plots lane 0 — the
+    ``CIMPCOptions.live_plotting`` debug loop of the reference
+    (mpc_utils.jl:156-183); it costs one host copy a step.
     """
-    if live_plotter is not None:
-        raise NotImplementedError("live plotting is not ported")
     if q1.dim() != 2:
         raise ValueError("simulate: q1 and v1 are (B, nq), one row a lane")
     dims = dims_of(model, env)
@@ -249,6 +251,8 @@ def simulate(model: Model, env, horizon: int, h: float, q1, v1, policy=None,
             res = ip_solve(dims, r_fn, z0, theta, opts, cone=env.cone)
         q2 = res.z[:, dims.iq2]
         gamma = res.z[:, dims.igamma1]
+        if live_plotter is not None:
+            live_plotter.record(t, q2, u, gamma)
         steps.append((q2, u, w, gamma, res.z[:, dims.ib1], res.z,
                       res.converged, res.iterations))
         qa, qb = qb, q2

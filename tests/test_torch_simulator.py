@@ -161,9 +161,17 @@ def test_zero_horizon_and_refused_arguments():
     assert bool(pt.status(got).all())
     np.testing.assert_allclose(got.q.numpy(), want.q, atol=1e-15)
     q = torch.zeros(1, 2, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="live plotting"):
-        pt.simulate(particle_2d, pt.flat_2d_lc, 1, 0.01, q, q,
-                    live_plotter=object())
+    # a live plotter is handed every lane of each step (utils/live.py)
+    seen = []
+
+    class Recorder:
+        def record(self, t, q2, u, gamma):
+            seen.append((t, tuple(q2.shape), tuple(u.shape),
+                         tuple(gamma.shape)))
+
+    pt.simulate(particle_2d, pt.flat_2d_lc, 1, 0.01, q, q,
+                live_plotter=Recorder())
+    assert seen == [(0, (1, 2), (1, particle_2d.nu), (1, particle_2d.nc))]
     with pytest.raises(ValueError, match="one row a lane"):
         pt.simulate(particle_2d, pt.flat_2d_lc, 1, 0.01, q[0], q[0])
 

@@ -1,9 +1,9 @@
-"""Where one control period of each of chip_smoke.py's six paths spends
-the device's time, on the GPU.
+"""Where one control period of each of chip_smoke.py's seven MPC paths
+spends the device's and the host's time, on the GPU.
 
-    python3 tools/torch_profile_paths.py [--paths ABCDEF] [--steps N]
+    python3 tools/torch_profile_paths.py [--paths ABCDEFI] [--steps N]
 
-``--paths`` picks the paths by letter (all six by default). ``--steps N``
+``--paths`` picks the paths by letter (all seven by default). ``--steps N``
 also times one unprofiled run of N sim steps of each picked path on the
 host clock (``steps_wall_s``; N a multiple of the path's period), after its
 period's profile: ``--paths E --steps 50`` gives path E's wall at 50 steps
@@ -12,25 +12,29 @@ beside its kernels a period.
 For path A (quadruped, structure-mode Newton), path B (2D hopper,
 ``simulate`` + ``ci_mpc_policy``, direct-mode Newton), path C (quadruped,
 direct-mode Newton), path D (centroidal quadruped, ``mpc_rollout``
-direct), path E (flamingo up the smooth slope, ``mpc_rollout`` direct) and
-path F (3D hopper, ``simulate`` + ``ci_mpc_policy`` direct), 16 lanes each,
-a period N_sample sim steps (5; the 3D hopper's 10): warm up one period,
-time one period
-on the host clock without a profiler, then run one period under
-``torch.profiler`` and print one JSON line a path: the unprofiled wall, the
-device's busy time (the sum of every kernel's self time) and its share of
-that wall, the number of kernels launched, the knot kernel's launches
-(prologue and solve counted apart) and device time, and the five kernels with the most device time. Only the
-device's activity is traced (a period launches ~10⁵ kernels, and tracing
-the host's side of each as well takes many minutes); the profiler still
-slows the host, so the busy share is taken against the unprofiled wall.
+direct), path E (flamingo up the smooth slope, ``mpc_rollout`` direct),
+path F (3D hopper, ``simulate`` + ``ci_mpc_policy`` direct) and path I
+(point-foot quadruped standing under a push, ``mpc_rollout`` direct; its
+first period, before the push), 16 lanes each, a period N_sample sim steps
+(5; the 3D hopper's 10): warm up one period, time one period on the host
+clock without a profiler, run one period under ``torch.profiler``, then one
+period with the host-synchronised spans of ``utils/spans.py`` on (sim IP,
+Newton, of it the KKT solve and the knot kernel; each span waits for the
+device, so the spanned wall is longer than the plain one), and print one
+JSON line a path: the unprofiled wall, the device's busy time (the sum of
+every kernel's self time) and its share of that wall, the number of
+kernels launched, the knot kernel's launches (prologue and solve counted
+apart) and device time, the five kernels with the most device time, and
+the spans (seconds and entries by name) with their wall. Only the device's
+activity is traced (a period launches ~10⁵ kernels, and tracing the host's
+side of each as well takes many minutes); the profiler still slows the
+host, so the busy share is taken against the unprofiled wall.
 """
 
 import argparse
 import json
 import os
 import re
-import subprocess
 import sys
 import time
 
@@ -40,8 +44,10 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
+from contactimplicitmpc_tpu_torch.device import describe  # noqa: E402
 from contactimplicitmpc_tpu_torch.hotpath import (  # noqa: E402
     HotPathConfig, conf_initial_states, make_quadruped_rollout)
+from contactimplicitmpc_tpu_torch.utils import spans  # noqa: E402
 
 
 def quadruped_run(cfg, dev):
@@ -61,19 +67,28 @@ def general_run(rollout):
     return (lambda n: (lambda: roll(n))), n_sample
 
 
+def spanned(fn):
+    """Run ``fn`` with host-synchronised spans on: ({name: [s, n]},
+    wall)."""
+    torch.cuda.synchronize()
+    spans.start()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {k: list(v) for k, v in spans.stop().items()}, wall
+
+
 def main():
     parser = argparse.ArgumentParser(
         description="one profiled control period of chip_smoke's paths")
-    parser.add_argument("--paths", default="ABCDEF")
+    parser.add_argument("--paths", default="ABCDEFI")
     parser.add_argument("--steps", type=int, default=0)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_paths: CUDA is not available")
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = describe(dev)
     by_letter = {
         "A": ("A quadruped structure",
               lambda: quadruped_run(HotPathConfig(), dev)),
@@ -87,7 +102,9 @@ def main():
         "E": ("E flamingo mpc_rollout direct, slope",
               lambda: general_run(chip_smoke.flamingo_rollout(dev))),
         "F": ("F hopper_3d simulate+ci_mpc_policy direct",
-              lambda: general_run(chip_smoke.hopper3d_rollout(dev)))}
+              lambda: general_run(chip_smoke.hopper3d_rollout(dev))),
+        "I": ("I point_foot_quadruped mpc_rollout direct, stand",
+              lambda: general_run(chip_smoke.point_foot_rollout(dev)))}
     for letter in args.paths:
         name, build = by_letter[letter]
         run, n_period = build()
@@ -107,6 +124,7 @@ def main():
         knot = [e for e in kernels
                 if re.search(r"knot_(ip|pack)(_wide)?_kernel", e.key)]
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+        span_s, span_wall = spanned(period)
         steps_wall = None
         if args.steps:
             long_run = run(args.steps)
@@ -126,7 +144,9 @@ def main():
             "knot_kernel_device_ms": sum(e.self_device_time_total
                                          for e in knot) * 1e-3,
             "top_kernels_ms": [[e.key[:120], e.self_device_time_total * 1e-3]
-                               for e in top]}), flush=True)
+                               for e in top],
+            "spans_wall_s": span_wall, "spans_s_entries": span_s}),
+            flush=True)
 
 
 if __name__ == "__main__":
