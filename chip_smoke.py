@@ -118,16 +118,27 @@ Phases (any failure raises and the script exits non-zero):
    the nominal lane converges every step and ends within 0.05 of the
    reference's height and 0.1 of its lateral position; at most one lane
    fewer than the JAX package's 16 converges every step;
-14. path G — the nonlinear (second-order) friction cone: the 3D particle on
+14. path K — the centroidal quadruped's box variant standing beside the
+   box step under a push toward it: ``mpc_rollout`` in
+   tests/test_mpc_box.py's configuration (centroidal_quadruped_box,
+   stand_v0 on flat_3d_lc, configuration mode, a 480 × 480 KKT a lane,
+   fixed 8-iteration knot solves on the (18, 24, 53, 4) instantiation,
+   the push w[40:45] = (3, 0, 0) / 5, path D's float32 sim options), 16
+   lanes × 80 sim steps (assets/box_offsets16.npz,
+   tools/box_lanes_reference.py): the nominal lane converges every step
+   with a q tracking error < 0.05 and its feet stay above the box surface
+   (``BOX_GAP_BOUND``); at most one lane fewer than the JAX package's
+   converges every step;
+15. path G — the nonlinear (second-order) friction cone: the 3D particle on
    flat_3d_nc through ``simulate`` (the dense LU of the exact Jacobian),
    float64, 16 lanes × 150 steps sliding from height 1
    (``cone_path``: every step converges, every lane comes to rest on the
    ground and keeps to its slide's line);
-15. path H — the Raibert baseline: ``raibert_policy`` on the 2D hopper
+16. path H — the Raibert baseline: ``raibert_policy`` on the 2D hopper
    through ``simulate``, float64, 16 lanes × 100 steps (``raibert_path``:
    every step converges, the nominal lane lands and takes off), and one
    TVLQR ``reference_gains`` on the card held to the CPU's;
-16. phase J — two processes (this script with ``--sweep-worker``) share
+17. phase J — two processes (this script with ``--sweep-worker``) share
    the card, joined by gloo (NCCL refuses two ranks on one GPU), and run
    ``parallel.sharded_rollout_stats`` on the 2D particle
    (tests/test_parallel.py's 16 lanes, 30 steps of 0.01, float64), held to
@@ -141,7 +152,7 @@ tools/torch_profile_paths.py's.
 
 JSON lines give the bound and the kernel's share of it at each timed
 shape; the line before the card's name is a JSON object with the kernel's
-comparison, launches (summed over the seven MPC paths, and by path), times and
+comparison, launches (summed over the eight MPC paths, and by path), times and
 bound at path A's N = 1008 and, in ``instantiations``, each of the ten
 with its dimensions, template, models, paths and launches and its time,
 plain time, bound and share at its path's N; the last line is
@@ -291,6 +302,18 @@ HOPPER3D_JAX_OK = 16
 # one lane.
 POINT_FOOT_JAX_OK = 16
 I_STEPS = 80
+# Path K's lanes in the JAX package (tools/box_lanes_reference.py, float32
+# on the CPU, the same 16 lanes × 80 steps, push and fixed 8-iteration knot
+# solves): all 16 converge every sim step; q tracking errors 0.00140 nominal
+# and ≤ 0.00826 over the lanes (the test's bound 0.05); lowest foot gaps to
+# the box surface −7.78e-7 nominal and ≥ −1.08e-6 over the lanes, inside
+# the test's bound −1e-4, which K holds; 1.125 Newton iterations a period,
+# 2.56 sim iterations a step. The port may lose one lane.
+BOX_JAX_OK = 16
+BOX_JAX_Q_ERR = 0.00140
+BOX_JAX_GAP = -7.78e-7
+BOX_GAP_BOUND = -1e-4
+K_STEPS = 80
 QUADRUPED_SHARES = {"conv_agree": CONV_AGREE, "q2_share": Q2_SHARE,
                     "z_share": Z_SHARE, "dz_share": DZ_SHARE}
 # The prologue's products and inverse against the plain packing: both sum
@@ -329,6 +352,7 @@ CENTROIDAL_OFFSETS = os.path.join(ASSETS, "centroidal_offsets16.npz")
 FLAMINGO_OFFSETS = os.path.join(ASSETS, "flamingo_offsets16.npz")
 HOPPER3D_OFFSETS = os.path.join(ASSETS, "hopper3d_offsets16.npz")
 POINT_FOOT_OFFSETS = os.path.join(ASSETS, "point_foot_offsets16.npz")
+BOX_OFFSETS = os.path.join(ASSETS, "box_offsets16.npz")
 KNOT_STATES = os.path.join(ASSETS, "knot_states.npz")
 
 
@@ -1041,30 +1065,22 @@ def hopper3d_path(dev, tag, steps):
     return launches
 
 
-def point_foot_push(n_steps, nw):
-    """tests/test_mpc_point_foot.py's lateral body push over ``n_steps``
-    sim steps: w[40:45] = (0, 5, 1) / 5."""
-    w = np.zeros((n_steps, nw))
-    w[40:45] = np.array([0.0, 5.0, 1.0]) / 5.0
-    return w
-
-
-def point_foot_rollout(dev):
-    """Path I's rollout, tests/test_mpc_point_foot.py's push recovery:
-    (roll, ref, n_sample, lanes) with ``roll(n_steps)`` the ``mpc_rollout``
-    (the stand_v0 gait on flat_3d_lc, direct-mode Newton in configuration
-    mode, the test's knot options with fixed 8-iteration knot solves, a
-    warm-start floor of 1e-2, ``point_foot_push``) of the 16 lanes of
-    ``POINT_FOOT_OFFSETS``. The sim solves are path D's float32 adaptive
-    ones (r_tol 1e-3, κ_tol 1e-5, 40 iterations): the test's 1e-8 is out of
-    float32's reach."""
-    model, env = point_foot_quadruped, flat_3d_lc
+def stand_push_rollout(dev, model, gaits, offsets, force):
+    """A quadruped of the centroidal family standing (``gaits``'s
+    stand_v0 on flat_3d_lc) under a push over five sim steps, w[40:45] =
+    ``force`` / 5: (roll, ref, n_sample, lanes) with ``roll(n_steps)`` the
+    ``mpc_rollout`` (direct-mode Newton in configuration mode, the tests'
+    knot options with fixed 8-iteration knot solves, a warm-start floor of
+    1e-2) of the 16 lanes of ``offsets``. The sim solves are path D's
+    float32 adaptive ones (r_tol 1e-3, κ_tol 1e-5, 40 iterations): the
+    tests' 1e-8 is out of float32's reach. Paths I and K."""
+    env = flat_3d_lc
     dims = dims_of(model, env)
     dtype = torch.float32
     n_sample, h_mpc, kappa = 5, 10, 2.0e-4
-    ref = from_gait(model, env, load_gait("point_foot_quadruped", "stand_v0"),
+    ref = from_gait(model, env, load_gait(gaits, "stand_v0"),
                     update_friction=True, dtype=dtype, device=dev)
-    # flat_trot.jl:38-42, diagonalized (the test's weights)
+    # flat_trot.jl:38-42, diagonalized (the tests' weights)
     v_w = 1e-3 * np.concatenate([np.ones(3), 1e3 * np.ones(3), np.ones(12)])
     q_body = np.array([1e-2, 1e-2, 1.0]) + 4.0 * np.array([0.2, 0.2, 1.0])
     q_w = np.concatenate([q_body, 0.3 * np.ones(3),
@@ -1075,16 +1091,26 @@ def point_foot_rollout(dev):
     mpc_ip = IPOptions(r_tol=1e-4, kappa_tol=kappa, max_iter=30,
                        undercut=5.0, gamma_reg=0.1, diff_sol=True, max_ls=3)
     _, sim_opts, n_opts = centroidal_options(kappa)
-    q1s, v1s = lanes_of(*initial_conditions(ref), POINT_FOOT_OFFSETS)
+    q1s, v1s = lanes_of(*initial_conditions(ref), offsets)
 
     def roll(n_steps):
+        w = np.zeros((n_steps, dims.nw))
+        w[40:45] = np.asarray(force) / 5.0
         return mpc_rollout(model, env, ref, obj, n_steps, h_mpc, n_sample,
                            kappa, CONFIGURATION, q1s, v1s, n_opts=n_opts,
                            ip_opts=mpc_ip, sim_opts=sim_opts,
-                           warm_start_floor=1e-2,
-                           w=point_foot_push(n_steps, dims.nw))
+                           warm_start_floor=1e-2, w=w)
 
     return roll, ref, n_sample, q1s.shape[0]
+
+
+def point_foot_rollout(dev):
+    """Path I's rollout: ``stand_push_rollout`` of the point-foot quadruped
+    under tests/test_mpc_point_foot.py's lateral push (0, 5, 1) on the lanes
+    of ``POINT_FOOT_OFFSETS``."""
+    return stand_push_rollout(dev, point_foot_quadruped,
+                              "point_foot_quadruped", POINT_FOOT_OFFSETS,
+                              (0.0, 5.0, 1.0))
 
 
 def point_foot_path(dev, tag):
@@ -1124,6 +1150,63 @@ def point_foot_path(dev, tag):
     assert float(dz[0]) < 0.05, float(dz[0])
     assert float(dy[0]) < 0.1, float(dy[0])
     assert int(ok.sum()) >= POINT_FOOT_JAX_OK - 1, ok.tolist()
+    return launches
+
+
+def box_rollout(dev):
+    """Path K's rollout: ``stand_push_rollout`` of the box variant beside
+    its step under tests/test_mpc_box.py's push toward it (3, 0, 0) on the
+    lanes of ``BOX_OFFSETS``."""
+    return stand_push_rollout(dev, MODELS["centroidal_quadruped_box"],
+                              "centroidal_quadruped", BOX_OFFSETS,
+                              (3.0, 0.0, 0.0))
+
+
+def box_gaps(res):
+    """Each lane's lowest foot height above the box surface
+    (``model.elevation``) over the rollout, (B,)."""
+    feet = res.q[:, :, 6:].reshape(res.q.shape[0], -1, 4, 3)
+    model = MODELS["centroidal_quadruped_box"]
+    return (feet[..., 2] - model.elevation(feet[..., 0])).flatten(1).amin(1)
+
+
+def box_path(dev, tag):
+    """Path K: ``box_rollout`` for ``K_STEPS`` sim steps with
+    tests/test_mpc_box.py::test_box_stand_mpc_push's checks on the nominal
+    lane (every step converged, q tracking error < 0.05, the lowest foot
+    gap to the box surface > ``BOX_GAP_BOUND``); at most one lane fewer
+    than the JAX package's converges every step; returns the launches."""
+    roll, ref, n_sample, lanes = box_rollout(dev)
+    t0 = time.time()
+    roll(n_sample)
+    torch.cuda.synchronize()
+    print(f"path K: warm-up (1 period) {time.time() - t0:.2f} s {tag}",
+          flush=True)
+
+    res, launches, wall = counted(lambda: roll(K_STEPS))
+    check_outputs(res)
+    ok = res.sim_converged.all(dim=1)
+    q_err = tracking_errors(ref, res.q, res.u, res.gamma, res.b, n_sample)[0]
+    gaps = box_gaps(res)
+    print(f"path K (centroidal_quadruped_box stand, push toward the step, "
+          f"mpc_rollout direct): {lanes} lanes x {K_STEPS} steps in "
+          f"{wall:.2f} s = {lanes * K_STEPS / wall:.1f} lane-steps/s {tag}",
+          flush=True)
+    print(f"path K: lanes that converged every step {int(ok.sum())}/{lanes} "
+          f"(JAX: {BOX_JAX_OK}/{lanes}), nominal q error "
+          f"{float(q_err[0]):.5f} (< 0.05; JAX float32 {BOX_JAX_Q_ERR}), "
+          f"nominal lowest foot gap {float(gaps[0]):+.3e} (> "
+          f"{BOX_GAP_BOUND:.0e}; JAX float32 {BOX_JAX_GAP:+.3e}), largest q "
+          f"error over the lanes {float(q_err.max()):.5f}, lowest gap "
+          f"{float(gaps.min()):+.3e}, mean Newton iterations "
+          f"{float(res.newton_iterations.float().mean()):.3f}, mean sim "
+          f"iterations {float(res.sim_iterations.float().mean()):.3f}, "
+          f"knot_ip launches {launches} {tag}", flush=True)
+    assert launches >= K_STEPS // n_sample, launches
+    assert bool(ok[0]), "nominal lane sim failed"
+    assert float(q_err[0]) < 0.05, float(q_err[0])
+    assert float(gaps[0]) > BOX_GAP_BOUND, float(gaps[0])
+    assert int(ok.sum()) >= BOX_JAX_OK - 1, ok.tolist()
     return launches
 
 
@@ -1402,7 +1485,7 @@ def main():
             converged_only=False)
         phases[name] = (err, times, (16 * 7 * k, k))
 
-    # ---- 9-14. the seven MPC paths -------------------------------------------
+    # ---- 9-15. the eight MPC paths -------------------------------------------
     walls = {}
 
     def timed(name, fn, *args):
@@ -1419,8 +1502,9 @@ def main():
         "D": timed("D", centroidal_path, dev, tag),
         "E": timed("E", flamingo_path, dev, tag, E_STEPS),
         "F": timed("F", hopper3d_path, dev, tag, 100),
-        "I": timed("I", point_foot_path, dev, tag)}
-    # ---- 15-17. the nonlinear cone, the Raibert baseline and the
+        "I": timed("I", point_foot_path, dev, tag),
+        "K": timed("K", box_path, dev, tag)}
+    # ---- 16-18. the nonlinear cone, the Raibert baseline and the
     # two-process sweep: no MPC, no knot kernel ------------------------------
     timed("G", cone_path, dev, tag)
     timed("H", raibert_path, dev, tag)
@@ -1430,7 +1514,8 @@ def main():
           + f" {tag}", flush=True)
     paths_of = {"quadruped": "AC", "hopper_2D": "B",
                 "centroidal_quadruped": "D", "flamingo": "E",
-                "hopper_3D": "F", "point_foot_quadruped": "I"}
+                "hopper_3D": "F", "point_foot_quadruped": "I",
+                "centroidal_quadruped_box": "K"}
 
     bounds = [{"model": name, "n": n, "knots": k, "ms": t[0],
                "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],

@@ -45,6 +45,30 @@ def default_mpc_ip_options(kappa: float, max_iter: int = 100) -> IPOptions:
                      undercut=5.0, gamma_reg=0.1, diff_sol=True)
 
 
+def adaptive_knot_solve(dims: Dims, lin: LinearizedData, alt, theta,
+                        q2_init, opts: IPOptions):
+    """The adaptive ``ip_solve`` over the linearized residual, all problems
+    one batch: ``theta`` (..., K, nθ) with ``alt`` (..., K, nc) and
+    ``q2_init`` (..., K, nq), problem ``(..., k)`` about knot ``k`` of
+    ``lin``. Returns (z, dz, converged) with the leading shape (..., K)."""
+    opts = dataclasses.replace(opts, diff_sol=True, fixed_iters=0)
+    lead = theta.shape[:-1]
+    flat = lambda x, k: x.expand(lead + x.shape[-k:]).reshape(
+        (-1,) + x.shape[-k:])
+    knots = [flat(x, k) for x, k in zip(lin, (1, 1, 1, 2, 2))]
+    r_fn, rz_fn, rt_fn = linearized_residual_fns(dims, *knots, flat(alt, 1))
+    theta = flat(theta, 1)
+    z0 = torch.cat([flat(q2_init, 1), theta.new_ones(
+        (theta.shape[0], dims.nz - dims.nq))], dim=-1)
+    res = ip_solve(dims, r_fn, z0, theta, opts, jacobian_fn=rz_fn,
+                   rtheta_fn=rt_fn,
+                   linear_solver=make_schur_solver(dims, knots[3], opts),
+                   batched=True)
+    return (res.z.reshape(lead + (dims.nz,)),
+            res.dz.reshape(lead + (dims.nz, dims.ntheta)),
+            res.converged.reshape(lead))
+
+
 class ImplicitDynamicsResult(NamedTuple):
     """Leading shape (..., H): the lanes (and trials), then the knots."""
 
@@ -82,22 +106,8 @@ def implicit_dynamics(dims: Dims, mode: str, lin: LinearizedData,
                       q2_init.contiguous(), opts, iters=fixed_iters)
         z, dz, converged = res.z, res.dz, res.converged
     else:
-        opts = dataclasses.replace(opts, diff_sol=True, fixed_iters=0)
-        flat = lambda x, k: x.expand(lead + x.shape[-k:]).reshape(
-            (-1,) + x.shape[-k:])
-        knots = [flat(x, k) for x, k in zip(lin, (1, 1, 1, 2, 2))]
-        r_fn, rz_fn, rt_fn = linearized_residual_fns(dims, *knots,
-                                                     flat(alt_p, 1))
-        theta = flat(traj.theta, 1)
-        z0 = torch.cat([flat(q2_init, 1), theta.new_ones(
-            (theta.shape[0], dims.nz - dims.nq))], dim=-1)
-        res = ip_solve(dims, r_fn, z0, theta, opts, jacobian_fn=rz_fn,
-                       rtheta_fn=rt_fn,
-                       linear_solver=make_schur_solver(dims, knots[3], opts),
-                       batched=True)
-        z = res.z.reshape(lead + (dims.nz,))
-        dz = res.dz.reshape(lead + (dims.nz, dims.ntheta))
-        converged = res.converged.reshape(lead)
+        z, dz, converged = adaptive_knot_solve(dims, lin, alt_p, traj.theta,
+                                               q2_init, opts)
 
     # dynamics violation (implicit_dynamics.jl:180-190)
     if mode == CONFIGURATION_FORCE:

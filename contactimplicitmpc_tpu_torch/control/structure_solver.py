@@ -30,6 +30,7 @@ from ..dims import Dims
 from ..ops.knot_ip import knot_ip
 from ..ops.linsolve import mv
 from ..sim.interior_point import IPOptions
+from .implicit_dynamics import adaptive_knot_solve
 from .linearized import LinearizedData
 from .newton import NewtonOptions
 
@@ -314,10 +315,9 @@ def _implicit_stages(dims: Dims, lin: LinearizedData, state: StructureState,
 
     Returns (d, aa, ab, ba, converged) as 1-based padded stacks: ``d[t]``
     is the solved configuration z*_{q2} and aa/ab/ba are ∂z*q2/∂(q0, q1, u).
+    ``fixed_iters > 0`` takes the fixed-iteration knot solve (the kernel on
+    CUDA tensors), 0 the adaptive ``ip_solve``.
     """
-    if fixed_iters <= 0:
-        raise ValueError("the structure-mode solver takes fixed-iteration "
-                         "knot solves (NewtonOptions.fixed_ip_iters > 0)")
     h = horizon
     nq = dims.nq
     lead = state.qa.shape[:-2]
@@ -326,14 +326,19 @@ def _implicit_stages(dims: Dims, lin: LinearizedData, state: StructureState,
                     theta_template[:, dims.iw1.start:].expand(
                         lead + (h - 1, dims.ntheta - dims.iw1.start))], dim=-1)
     alt_p = alt[..., None, :].expand(lead + (h - 1, dims.nc)).contiguous()
-    res = knot_ip(dims, lin.z0, lin.theta0, lin.r0, lin.rz0, lin.rtheta0,
-                  alt_p, th, state.qb[..., 1:h, :].contiguous(), opts,
-                  iters=fixed_iters)
-    d = _pad(res.z[..., :nq], -2)
-    aa = _pad(res.dz[..., :nq, dims.iq0], -3)
-    ab = _pad(res.dz[..., :nq, dims.iq1], -3)
-    ba = _pad(res.dz[..., :nq, dims.iu1], -3)
-    return d, aa, ab, ba, res.converged
+    q2_init = state.qb[..., 1:h, :].contiguous()
+    if fixed_iters > 0:
+        res = knot_ip(dims, lin.z0, lin.theta0, lin.r0, lin.rz0, lin.rtheta0,
+                      alt_p, th, q2_init, opts, iters=fixed_iters)
+        z, dz, converged = res.z, res.dz, res.converged
+    else:
+        z, dz, converged = adaptive_knot_solve(dims, lin, alt_p, th, q2_init,
+                                               opts)
+    d = _pad(z[..., :nq], -2)
+    aa = _pad(dz[..., :nq, dims.iq0], -3)
+    ab = _pad(dz[..., :nq, dims.iq1], -3)
+    ba = _pad(dz[..., :nq, dims.iu1], -3)
+    return d, aa, ab, ba, converged
 
 
 def structure_residuals(dims: Dims, obj: StructureObjective,

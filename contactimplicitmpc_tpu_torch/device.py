@@ -4,6 +4,7 @@ not say: on the NVIDIA GPU, never silently on the CPU."""
 from __future__ import annotations
 
 import subprocess
+import time
 
 import torch
 
@@ -36,3 +37,16 @@ def describe(device) -> str:
          f"--id={index}"], capture_output=True, text=True, check=True,
         timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def timed(fn, device):
+    """``fn()`` and its wall seconds on the host clock, with the queue of
+    ``device`` drained before and after (the examples' timing)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.time()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, time.time() - t0

@@ -4,9 +4,8 @@ reference's serial loop, ``examples/quadruped/monte_carlo.jl`` /
 ``examples/hopper/monte_carlo.jl:78-91``): the lanes, uniformly offset
 standing poses, are split over the ranks of a mesh (one process a GPU);
 each rank rolls its lanes as one batch and the sweep statistics sum across
-the ranks with one all-reduce. The port's structure-mode solver takes
-fixed-iteration knot solves: 8, the card kernel's form (the JAX example's
-are adaptive).
+the ranks with one all-reduce. The knot solves are fixed-iteration ones:
+8, the card kernel's form (the JAX example's are adaptive).
 
 Run: python examples/torch_quadruped_monte_carlo.py [--n 128] [--steps 500]
      [--png runs.png] [--f64] [--cpu]
@@ -18,7 +17,6 @@ Run: python examples/torch_quadruped_monte_carlo.py [--n 128] [--steps 500]
 import argparse
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -47,7 +45,8 @@ def main(argv=None):
     from contactimplicitmpc_tpu_torch.control.rollout import mpc_rollout
     from contactimplicitmpc_tpu_torch.control.trajectory import (
         from_gait, initial_conditions)
-    from contactimplicitmpc_tpu_torch.device import describe, resolve_device
+    from contactimplicitmpc_tpu_torch.device import (describe, resolve_device,
+                                                     timed)
     from contactimplicitmpc_tpu_torch.models.quadruped import (
         initial_configuration, quadruped as model)
     from contactimplicitmpc_tpu_torch.parallel import (
@@ -112,20 +111,11 @@ def main(argv=None):
         q1s[0] = q1
         v1s = v1.expand(n, dims.nq).contiguous()
 
-        def timed():
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            t0 = time.time()
-            out = run(q1s, v1s)
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            return out, time.time() - t0
-
-        (traj, stats), first = timed()
+        (traj, stats), first = timed(lambda: run(q1s, v1s), device)
         say = print if lead else (lambda *_: None)
         say(f"first run: {first:.1f}s ({ranks} device(s), mesh "
               f"{tuple(mesh.shape)}) {tag}")
-        (traj, stats), wall = timed()
+        (traj, stats), wall = timed(lambda: run(q1s, v1s), device)
 
         solves = n * (args.steps // n_sample)
         say(f"runs: {int(float(stats.n_rollouts))}  "

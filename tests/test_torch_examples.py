@@ -35,6 +35,28 @@ def example(name):
     return module
 
 
+def run_case(capsys, name, argv, lines, figures=(), tmp_path=None,
+             cpu=True):
+    """Run ``examples/<name>.py``'s ``main`` with ``argv`` (and ``--cpu``
+    where ``cpu``; each ``(flag, file)`` of ``figures`` written into
+    ``tmp_path`` where it is given) and check that every one of ``lines``,
+    the JAX example's result lines, is in what it prints, with the
+    device's tag; returns what it printed."""
+    args = (["--cpu"] if cpu else []) + list(argv)
+    for flag, file in figures if tmp_path is not None else ():
+        args += [flag, str(tmp_path / file)]
+    example(name).main(args)
+    out = capsys.readouterr().out
+    for line in lines:
+        assert line in out, (line, out)
+    assert ("[cpu]" in out) == cpu, out
+    if tmp_path is not None:
+        for _, file in figures:
+            assert (tmp_path / file).stat().st_size > 0, file
+            assert f"wrote {tmp_path / file}" in out
+    return out
+
+
 def test_quadruped_monte_carlo(tmp_path, capsys):
     png = tmp_path / "runs.png"
     example("torch_quadruped_monte_carlo").main(

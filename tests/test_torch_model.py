@@ -9,6 +9,7 @@ sources: this interpreter may have JAX loaded already)."""
 
 import ast
 import dataclasses
+import glob
 import os
 
 import jax
@@ -216,13 +217,16 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(base, f)
     yield os.path.join(ROOT, "chip_smoke.py")
-    yield os.path.join(ROOT, "tests", "test_torch_cuda.py")
+    for pattern in ("examples/torch_*.py", "tools/torch_*.py",
+                    "tests/test_torch_cuda.py",
+                    "tests/test_torch_examples*.py"):
+        yield from sorted(glob.glob(os.path.join(ROOT, pattern)))
 
 
 def test_port_never_imports_jax():
-    """No module of the port (nor chip_smoke.py, nor the tests run on the
-    card) imports jax or the JAX package; the machine with the card has
-    neither."""
+    """No module of the port (nor chip_smoke.py, the port's examples and
+    tools, nor the tests run on the card and the files they import) imports
+    jax or the JAX package; the machine with the card has neither."""
     checked = 0
     for path in _port_sources():
         with open(path) as f:
@@ -239,4 +243,4 @@ def test_port_never_imports_jax():
                 assert root not in ("jax", "jaxlib", "contactimplicitmpc_tpu"), \
                     (path, m)
         checked += 1
-    assert checked >= 20
+    assert checked >= 60
