@@ -74,7 +74,8 @@ Phases (any failure raises and the script exits non-zero):
    the band here is the example's 0 < z < 1);
 9. path C — the quadruped through ``mpc_rollout`` with
    ``HotPathConfig(newton_mode="direct")`` (a 300 × 300 KKT a lane), 16
-   lanes × 25 sim steps, the health of path A;
+   lanes × 100 sim steps (tests/test_hotpath.py's depth), the health of
+   path A;
 10. path D — the centroidal quadruped (18 DoF, 3D) through ``mpc_rollout``
    in examples/centroidal_trot.py's configuration (direct-mode Newton in
    configuration mode, a 480 × 480 KKT a lane, fixed 8-iteration knot
@@ -145,14 +146,28 @@ Phases (any failure raises and the script exits non-zero):
    ``monte_carlo_rollouts`` of the same lanes in this process: 16
    rollouts, every one a success, the mean final q within 1e-10. A
    worker's failure fails the script. G, H and J use no MPC and launch no
-   knot kernel.
+   knot kernel;
+18. phase L — tests/test_mpc_quadruped.py's contract at its full 1000 sim
+   steps (``simulate`` + ``ci_mpc_policy``, one lane, float32), run and
+   held as tests/test_torch_contracts_cuda.py runs and holds it: every
+   step converges, the tracking errors under 1.5 × the reference's;
+19. graphs — the sim solve's replayed CUDA graphs (``sim/graphs.py``)
+   against its eager body (``SimSolve._eager``) on one sim step each of
+   paths A (fixed iterations, float32), B (adaptive, float32) and G (the
+   nonlinear cone's dense LU, float64), and on a 20-step ``simulate`` of
+   path B: bit for bit, with each step's replayed and eager time and its
+   graphs' warm-up, capture and pool memory.
+
+Every sim step of every path runs its interior-point solve as replayed
+CUDA graphs: each counted run resets ``sim.graphs.stats`` and requires one
+replay a sim step, and the script prints the graphs' counts a path.
 
 The spans and device traces of one control period of each MPC path are
 tools/torch_profile_paths.py's.
 
 JSON lines give the bound and the kernel's share of it at each timed
 shape; the line before the card's name is a JSON object with the kernel's
-comparison, launches (summed over the eight MPC paths, and by path), times and
+comparison, launches (summed over the nine MPC paths, and by path), times and
 bound at path A's N = 1008 and, in ``instantiations``, each of the ten
 with its dimensions, template, models, paths and launches and its time,
 plain time, bound and share at its path's N; the last line is
@@ -168,6 +183,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -211,7 +227,11 @@ from contactimplicitmpc_tpu_torch.parallel import (distributed, make_mesh,
                                                    make_sharded_mpc_rollouts,
                                                    monte_carlo_rollouts,
                                                    sharded_rollout_stats)
-from contactimplicitmpc_tpu_torch.sim.interior_point import IPOptions
+from contactimplicitmpc_tpu_torch.sim import graphs
+from contactimplicitmpc_tpu_torch.sim.graphs import SimSolve
+from contactimplicitmpc_tpu_torch.sim.interior_point import (IPOptions,
+                                                             z_initialize)
+from contactimplicitmpc_tpu_torch.sim.residual import pack_theta, residual
 from contactimplicitmpc_tpu_torch.sim.simulator import default_sim_options
 from contactimplicitmpc_tpu_torch.utils.gaits import load_gait
 from contactimplicitmpc_tpu_torch.utils.visuals import (plot_runs_2d,
@@ -325,6 +345,13 @@ PACK_EXACT = ("rza", "dy1", "ry1d", "ry2", "z0", "r0", "theta0", "rtheta0")
 # Path E's depth: the 50 steps of path D, now that the flamingo's and the 3D
 # hopper's derivatives are written out (PERF.md §6)
 E_STEPS = 50
+
+# Path C's depth: tests/test_hotpath.py's 100 steps, now that the sim steps
+# are replayed graphs
+C_STEPS = 100
+# the sim graphs' counts of each path's counted run (``counted``)
+GRAPHS = {}
+TESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
 
 SPIN_CYCLES = 60_000_000   # ≈ 35 ms of device spin ahead of timed launches
 
@@ -571,15 +598,22 @@ def lane_success(converged):
     return float((per_lane >= 0.95).float().mean()), per_lane
 
 
-def counted(fn):
-    """Run ``fn`` with the kernel's launch count set to 0 just before and
-    read just after: (result, launches, wall seconds)."""
+def counted(path, steps, fn):
+    """Run ``fn``, ``steps`` sim steps of ``path``, with the kernel's launch
+    count and the sim graphs' counts (``sim.graphs.stats``) set to 0 just
+    before and read just after: (result, launches, wall seconds). Every sim
+    step's solve must be a graph replay, one a step; the graphs' counts go
+    into ``GRAPHS[path]``."""
     torch.cuda.synchronize()
     knot_ip.launches = 0
+    graphs.reset_stats()
     t0 = time.time()
     out = fn()
     torch.cuda.synchronize()
-    return out, knot_ip.launches, time.time() - t0
+    wall = time.time() - t0
+    GRAPHS[path] = {"steps": steps, **graphs.stats}
+    assert graphs.stats["replays"] == steps, (path, graphs.stats, steps)
+    return out, knot_ip.launches, wall
 
 
 def sweep_stats_direct(res, ref, n_sample):
@@ -659,9 +693,11 @@ def quadruped_path(path, cfg, steps, dev, tag, sweep=False):
     if sweep:
         run = make_sharded_mpc_rollouts(make_mesh(), rollout, ref,
                                         cfg.n_sample)
-        (res, stats), launches, wall = counted(lambda: run(q1s, v1s))
+        (res, stats), launches, wall = counted(
+            path, steps, lambda: run(q1s, v1s))
     else:
-        res, launches, wall = counted(lambda: rollout(q1s, v1s))
+        res, launches, wall = counted(path, steps,
+                                      lambda: rollout(q1s, v1s))
     check_outputs(res)
     n_ctrl = steps // cfg.n_sample
     assert launches >= n_ctrl, (launches, n_ctrl)
@@ -740,7 +776,7 @@ def hopper_path(dev, tag):
     print(f"path B: warm-up (2 periods) {time.time() - t0:.2f} s {tag}",
           flush=True)
 
-    traj, launches, wall = counted(lambda: roll(steps))
+    traj, launches, wall = counted("path B", steps, lambda: roll(steps))
     check_outputs(traj)
     assert launches >= steps // n_sample, launches
     ok = pt.status(traj)
@@ -823,7 +859,7 @@ def centroidal_path(dev, tag):
     print(f"path D: warm-up (2 periods) {time.time() - t0:.2f} s {tag}",
           flush=True)
 
-    res, launches, wall = counted(lambda: roll(steps))
+    res, launches, wall = counted("path D", steps, lambda: roll(steps))
     check_outputs(res)
     assert launches >= steps // n_sample, launches
     ok = res.sim_converged.all(dim=1)
@@ -999,7 +1035,7 @@ def flamingo_path(dev, tag, steps):
     """Path E: ``flamingo_rollout`` for ``steps`` sim steps with the health
     tests/test_mpc_flamingo_slope.py checks; returns the launches."""
     roll, ref, n_sample, sim_env, lanes = flamingo_rollout(dev)
-    res, launches, wall = counted(lambda: roll(steps))
+    res, launches, wall = counted("path E", steps, lambda: roll(steps))
     check_outputs(res)
     assert launches >= steps // n_sample, launches
     ok = res.sim_converged.all(dim=1)
@@ -1038,7 +1074,7 @@ def hopper3d_path(dev, tag, steps):
     print(f"path F: warm-up (1 period) {time.time() - t0:.2f} s {tag}",
           flush=True)
 
-    traj, launches, wall = counted(lambda: roll(steps))
+    traj, launches, wall = counted("path F", steps, lambda: roll(steps))
     check_outputs(traj)
     assert launches >= steps // n_sample, launches
     ok = pt.status(traj)
@@ -1127,7 +1163,7 @@ def point_foot_path(dev, tag):
     print(f"path I: warm-up (1 period) {time.time() - t0:.2f} s {tag}",
           flush=True)
 
-    res, launches, wall = counted(lambda: roll(I_STEPS))
+    res, launches, wall = counted("path I", I_STEPS, lambda: roll(I_STEPS))
     check_outputs(res)
     ok = res.sim_converged.all(dim=1)
     q_end = res.q[:, -1]
@@ -1183,7 +1219,7 @@ def box_path(dev, tag):
     print(f"path K: warm-up (1 period) {time.time() - t0:.2f} s {tag}",
           flush=True)
 
-    res, launches, wall = counted(lambda: roll(K_STEPS))
+    res, launches, wall = counted("path K", K_STEPS, lambda: roll(K_STEPS))
     check_outputs(res)
     ok = res.sim_converged.all(dim=1)
     q_err = tracking_errors(ref, res.q, res.u, res.gamma, res.b, n_sample)[0]
@@ -1311,10 +1347,8 @@ def cone_path(dev, tag):
                       dtype=f64, device=dev)
     q1 = torch.tensor([[0.0, 0.0, 1.0]] * 16, dtype=f64, device=dev)
     steps, h = 150, 0.01
-    t0 = time.time()
-    traj = pt.simulate(particle, flat_3d_nc, steps, h, q1, v1)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+    traj, _, wall = counted("path G", steps, lambda: pt.simulate(
+        particle, flat_3d_nc, steps, h, q1, v1))
     check_outputs(traj)
     q_end, v_end = traj.q[:, -1], (traj.q[:, -1] - traj.q[:, -2]) / h
     vn = torch.as_tensor(vxy, dtype=f64, device=dev)
@@ -1353,13 +1387,9 @@ def raibert_path(dev, tag):
                       + [0.0, 0.5, 0.0, 0.5], dtype=f64, device=dev)
     opts = IPOptions(r_tol=1e-8, kappa_tol=1e-8, max_iter=100,
                      undercut=float("inf"), max_ls=25)
-    t0 = time.time()
-    traj = pt.simulate(hopper_2d, flat_2d_lc, 100, h, q1,
-                       torch.zeros_like(q1),
-                       policy=raibert_policy(hopper_2d, h=h, v0=0.2),
-                       opts=opts)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+    traj, _, wall = counted("path H", 100, lambda: pt.simulate(
+        hopper_2d, flat_2d_lc, 100, h, q1, torch.zeros_like(q1),
+        policy=raibert_policy(hopper_2d, h=h, v0=0.2), opts=opts))
     check_outputs(traj)
     gamma0 = traj.gamma[0, :, 0]
     landed = gamma0 > 1.5e-2
@@ -1400,6 +1430,127 @@ def raibert_path(dev, tag):
           f"CPU tensors {err:.3g} {tag}", flush=True)
     assert err < 1e-8, err
     return wall
+
+
+def sim_step_problem(dev, name, dtype):
+    """One sim step of 16 lanes of a path's model: (dims, residual, z0, θ,
+    cone, options). ``A``: the quadruped at tests/test_hotpath.py's lanes
+    with the hot path's sim options (24 fixed iterations, float32); ``B``:
+    the 2D hopper at path B's lanes with its adaptive float32 options;
+    ``G``: the 3D particle on flat_3d_nc at path G's slide velocities, 0.02
+    above the ground and falling at 1, with the simulator's defaults
+    (adaptive, 25 halvings, the dense LU; float64). The controls are
+    0.1 · N(0, 1) from numpy.random.default_rng(11)."""
+    rng = np.random.default_rng(11)
+    kw = dict(dtype=dtype, device=dev)
+    if name == "A":
+        cfg = HotPathConfig()
+        _, ref, model, env, dims = make_quadruped_rollout(cfg, 5, dtype,
+                                                          device=dev)
+        q1, v1 = conf_initial_states(model, ref)
+        h, opts = float(ref.h) / cfg.n_sample, cfg.sim_ip_options()
+    elif name == "B":
+        _, ref, n_sample, _ = hopper_rollout(dev)
+        model, env = hopper_2d, flat_2d_lc
+        dims = dims_of(model, env)
+        q1, v1 = initial_conditions(ref)
+        with np.load(HOPPER_OFFSETS) as f:
+            q1 = q1[None] + torch.as_tensor(f["offsets"], **kw)
+        v1 = v1.expand_as(q1)
+        h = float(ref.h) / n_sample
+        opts = IPOptions(r_tol=1e-3, kappa_tol=1e-5, max_iter=40,
+                         undercut=float("inf"), max_ls=6)
+    else:
+        model, env = particle, flat_3d_nc
+        dims = dims_of(model, env)
+        speed, heading = (rng.uniform(0.0, 2.0, 16),
+                          rng.uniform(0, 2 * np.pi, 16))
+        v1 = torch.as_tensor(np.stack([speed * np.cos(heading),
+                                       speed * np.sin(heading),
+                                       -np.ones(16)], axis=1), **kw)
+        q1 = torch.tensor([[0.0, 0.0, 0.02]] * 16, **kw)
+        h, opts = 0.01, default_sim_options()
+    u = torch.as_tensor(0.1 * rng.standard_normal((16, dims.nu)), **kw)
+    theta = pack_theta(q1 - h * v1, q1, u, torch.zeros((16, dims.nw), **kw),
+                       model.mu_world, h)
+    z0 = z_initialize(dims, q1, cone=env.cone)
+
+    def r_fn(z, th, kap):
+        return residual(model, env, z, th, kap)
+
+    return dims, r_fn, z0, theta, env.cone, opts
+
+
+def graph_phase(dev, tag):
+    """The sim solve's replayed graphs against its eager body
+    (``SimSolve._eager``, ``ip_solve``) on the card: one sim step each of
+    path A's solve (24 fixed iterations, float32), path B's (adaptive,
+    float32) and path G's (the nonlinear cone's dense LU, float64), and a
+    20-step ``simulate`` of path B's rollout, its sim steps run both ways.
+    Every output agrees bit for bit: the graphs replay the same kernels on
+    the same inputs, and the dense LU takes the same cuSOLVER/cuBLAS
+    routines eagerly as under capture
+    (``interior_point._capturable_linalg``)."""
+    def equal(name, got, want):
+        diff = {k: (bool(torch.equal(a, b)) if a is not None else None)
+                for k, a, b in zip(got._fields, got, want)}
+        assert all(v is not False for v in diff.values()), (name, diff)
+
+    for name, dtype in (("A", torch.float32), ("B", torch.float32),
+                        ("G", torch.float64)):
+        dims, r_fn, z0, theta, cone, opts = sim_step_problem(dev, name,
+                                                             dtype)
+        solve = SimSolve(dims, r_fn, opts, cone=cone)
+        graphs.reset_stats()
+        got = solve(z0, theta)
+        stats = dict(graphs.stats)
+        step_graph = cuda_ms(lambda: solve(z0, theta), 10)
+        step_eager = cuda_ms(lambda: solve._eager(z0, theta), 2)
+        want = solve._eager(z0, theta)
+        equal(name, got, want)
+        print(f"graphs: path {name}'s sim step (16 lanes, {dtype}, "
+              f"{'fixed ' + str(opts.fixed_iters) if opts.fixed_iters else 'adaptive'}"
+              f" iterations; mean {float(got.iterations.float().mean()):.3f}, "
+              f"{int(got.converged.sum())}/16 converged) replayed = eager "
+              f"bit for bit; {step_graph:.3f} ms replayed against "
+              f"{step_eager:.3f} ms eager; warm-up {stats['warmup_s']:.3f} s,"
+              f" capture and instantiation {stats['capture_s']:.3f} s, pool "
+              f"{stats['pool_bytes'] / 2 ** 20:.1f} MiB {tag}", flush=True)
+
+    roll, _, _, _ = hopper_rollout(dev)
+    t0 = time.time()
+    got = roll(20)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    with mock.patch.object(SimSolve, "_graphed", SimSolve._eager):
+        want = roll(20)
+        torch.cuda.synchronize()
+    t2 = time.time()
+    equal("simulate", got, want)
+    print(f"graphs: path B's simulate, 16 lanes x 20 steps, replayed = "
+          f"eager bit for bit; {t1 - t0:.2f} s replayed (captures included) "
+          f"against {t2 - t1:.2f} s eager {tag}", flush=True)
+
+
+def contract_path(dev, tag):
+    """Phase L: tests/test_mpc_quadruped.py's contract at its full 1000 sim
+    steps on the card, as tests/test_torch_contracts_cuda.py runs and holds
+    it (``simulate`` + ``ci_mpc_policy`` direct, gait2, one lane from the
+    gait's initial state, float32, fixed 8-iteration knot solves): every
+    step converges and the four tracking errors stay under 1.5 × the
+    reference's, which the JAX package's float32 run also meets
+    (tools/contracts_reference.py); returns the launches."""
+    sys.path.insert(0, TESTS)
+    import test_torch_contracts_cuda as contracts
+    got, launches, wall = counted(
+        "phase L", 1000, lambda: contracts.CONTRACTS["quadruped"](dev))
+    print(f"phase L (tests/test_mpc_quadruped.py at 1000 steps, simulate + "
+          f"ci_mpc_policy direct): {json.dumps(got)} (JAX float32: "
+          f"{json.dumps(contracts.JAX_F32['quadruped'])}) in {wall:.2f} s, "
+          f"knot_ip launches {launches} {tag}", flush=True)
+    contracts.check("quadruped", got)
+    assert launches >= 1000 // 5, launches
+    return launches
 
 
 def main():
@@ -1485,7 +1636,7 @@ def main():
             converged_only=False)
         phases[name] = (err, times, (16 * 7 * k, k))
 
-    # ---- 9-15. the eight MPC paths -------------------------------------------
+    # ---- 9-15, 18. the nine MPC paths ------------------------------------------
     walls = {}
 
     def timed(name, fn, *args):
@@ -1498,21 +1649,26 @@ def main():
         "A": timed("A", quadruped_path, "path A", cfg, 100, dev, tag, True),
         "B": timed("B", hopper_path, dev, tag),
         "C": timed("C", quadruped_path, "path C",
-                   HotPathConfig(newton_mode="direct"), 25, dev, tag),
+                   HotPathConfig(newton_mode="direct"), C_STEPS, dev, tag),
         "D": timed("D", centroidal_path, dev, tag),
         "E": timed("E", flamingo_path, dev, tag, E_STEPS),
         "F": timed("F", hopper3d_path, dev, tag, 100),
         "I": timed("I", point_foot_path, dev, tag),
-        "K": timed("K", box_path, dev, tag)}
+        "K": timed("K", box_path, dev, tag),
+        "L": timed("L", contract_path, dev, tag)}
     # ---- 16-18. the nonlinear cone, the Raibert baseline and the
     # two-process sweep: no MPC, no knot kernel ------------------------------
     timed("G", cone_path, dev, tag)
     timed("H", raibert_path, dev, tag)
     timed("J", two_process_phase, dev, tag)
+    timed("graphs", graph_phase, dev, tag)
+    print("sim graphs of each counted run (one replay a sim step; sets "
+          "captured, their warm-up and capture seconds and pool bytes): "
+          + json.dumps(GRAPHS) + f" {tag}", flush=True)
     print("phase walls (s, each with its warm-up and checks): "
           + json.dumps({k: round(v, 2) for k, v in walls.items()})
           + f" {tag}", flush=True)
-    paths_of = {"quadruped": "AC", "hopper_2D": "B",
+    paths_of = {"quadruped": "ACL", "hopper_2D": "B",
                 "centroidal_quadruped": "D", "flamingo": "E",
                 "hopper_3D": "F", "point_foot_quadruped": "I",
                 "centroidal_quadruped_box": "K"}

@@ -10,7 +10,8 @@ Every lane runs the same period and step counts, so the loops are Python
 loops over time with all lanes in each tensor. With fixed-iteration
 solves (``sim_opts.fixed_iters``, ``n_opts.fixed_newton_iters`` or
 structure mode) no value is read back to the host until the rollout
-returns; the adaptive loops read one flag a trip.
+returns; the adaptive loops read one flag a trip. The sim steps' solves
+are ``sim.graphs.SimSolve``'s: replayed CUDA graphs on the card.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 
 from ..models.base import Model, dims_of
-from ..sim.interior_point import IPOptions, ip_solve, z_initialize
+from ..sim.graphs import SimSolve
+from ..sim.interior_point import IPOptions, z_initialize
 from ..sim.residual import pack_theta, residual
 from ..utils.spans import span
 from .implicit_dynamics import (CONFIGURATION, default_mpc_ip_options,
@@ -128,6 +130,8 @@ def mpc_rollout(model: Model, env, ref_traj: ContactTraj, obj,
     def r_fn(z, th, kap):
         return residual(sim_model, sim_env, z, th, kap)
 
+    sim_solve = SimSolve(dims, r_fn, sim_opts)
+
     mu = model.mu_world
     # external disturbance forces per sim step, applied as given (zero if
     # absent): the OpenLoopDisturbance analog (disturbances.jl:40-60)
@@ -152,7 +156,7 @@ def mpc_rollout(model: Model, env, ref_traj: ContactTraj, obj,
             else:
                 z0 = z_initialize(dims, qb)
             with span("sim_ip", theta):
-                res = ip_solve(dims, r_fn, z0, theta, sim_opts)
+                res = sim_solve(z0, theta)
             q2 = res.z[:, :nq]
             # a DIVERGED solve must not seed the next step, but a merely
             # near-converged one (rvio within 100× tolerance) is a far

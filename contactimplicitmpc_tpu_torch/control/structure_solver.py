@@ -33,6 +33,7 @@ from ..sim.interior_point import IPOptions
 from .implicit_dynamics import adaptive_knot_solve
 from .linearized import LinearizedData
 from .newton import NewtonOptions
+from .objective import TrackingVelocityObjective
 
 
 def _mtv(m, v):
@@ -249,7 +250,9 @@ def structure_objective_from_tracking(dims: Dims, obj, beta: float,
         return _pad(w[torch.as_tensor(idx, device=w.device)], 0)
 
     q_w = pad_rows(obj.q, horizon)
-    v_w = torch.zeros_like(q_w)
+    v_w = (pad_rows(obj.v, horizon)
+           if isinstance(obj, TrackingVelocityObjective)
+           else torch.zeros_like(q_w))
     u_w = pad_rows(obj.u, horizon)
     return build_structure_objective(dims, q_w, v_w, u_w, beta, horizon)
 

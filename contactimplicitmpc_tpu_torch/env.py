@@ -27,6 +27,23 @@ LINEARIZED_CONE = "linearized"
 NONLINEAR_CONE = "nonlinear"
 
 
+_CONSTS = {}   # (name, dtype, device): the terrains' constant tensors
+
+
+def _const(name, value, dtype, device=None) -> torch.Tensor:
+    """A terrain constant as a tensor, made once per (name, dtype, device)
+    and outside any ``torch.func`` transform (``Model.const``'s rule), so
+    that a sim step copies nothing from the host."""
+    device = torch.device(device or "cpu")
+    key = (name, dtype, device)
+    t = _CONSTS.get(key)
+    if t is None:
+        with torch._C._DisableFuncTorch():
+            t = _CONSTS[key] = torch.tensor(
+                np.array(value, dtype=np.float64), dtype=dtype).to(device)
+    return t
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Environment:
     """Terrain + friction-cone description (environment.jl:12-23).
@@ -48,13 +65,14 @@ class Environment:
         return 1 if self.dim == 2 else 2
 
     def friction_mapping(self, dtype, device=None) -> torch.Tensor:
-        """environment.jl:105-121."""
+        """environment.jl:105-121; made once per (dtype, device)."""
         if self.cone == LINEARIZED_CONE:
-            if self.dim == 2:
-                return torch.tensor([[1.0, -1.0]], dtype=dtype, device=device)
-            return torch.tensor([[1.0, 0.0, -1.0, 0.0], [0.0, 1.0, 0.0, -1.0]],
-                                dtype=dtype, device=device)
-        return torch.eye(self.dim - 1, dtype=dtype, device=device)
+            value = ([[1.0, -1.0]] if self.dim == 2 else
+                     [[1.0, 0.0, -1.0, 0.0], [0.0, 1.0, 0.0, -1.0]])
+        else:
+            value = np.eye(self.dim - 1)
+        return _const(("friction_mapping", self.dim, self.cone), value, dtype,
+                      device)
 
     def rotation(self, x: torch.Tensor) -> torch.Tensor:
         """World→surface rotation at horizontal positions ``x`` (..., ne-1),
@@ -206,9 +224,8 @@ stairs3_2d_lc = Environment(2, _stairs3, lambda x: torch.zeros_like(x))
 def smoothed_stairs(x):
     """stairs.jl:27-46 — softmax-kernel smoothed staircase."""
     x = x[..., 0]
-    c = torch.tensor([0.0, 0.5, 1.0, 1.5, 2.0], dtype=x.dtype, device=x.device)
-    a = torch.tensor([0.0, 0.25, 0.5, 0.75, 0.0], dtype=x.dtype,
-                     device=x.device)
+    c = _const("stairs_c", [0.0, 0.5, 1.0, 1.5, 2.0], x.dtype, x.device)
+    a = _const("stairs_a", [0.0, 0.25, 0.5, 0.75, 0.0], x.dtype, x.device)
     r, s = 0.25, 3.0
     v = s * (1.0 - torch.square((x[..., None] - c) / r))
     w = torch.softmax(v, dim=-1)

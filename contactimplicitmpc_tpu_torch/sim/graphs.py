@@ -1,0 +1,188 @@
+"""The sim step's interior-point solve as replayed CUDA graphs.
+
+The port's counterpart of the compiled sim solve of the JAX package, whose
+``ip_solve`` is one program under ``jax.jit`` (a ``fori_loop`` of fixed
+iterations or a ``while_loop``, ``contactimplicitmpc_tpu/sim/
+interior_point.py``). PyTorch dispatches each op of a loop trip from
+Python, ≈ 1.2k small kernels a trip on the quadruped; a CUDA graph captures
+them once and a replay launches them all with one call.
+
+``SimSolve(dims, residual_fn, opts, cone)`` is the solve ``simulate`` and
+``mpc_rollout`` call each sim step, ``solve(z0, θ) -> IPResult``; each
+caller makes its own once a rollout, since ``residual_fn`` is a closure
+made there. On CPU tensors it is ``ip_solve``. On CUDA tensors it keeps,
+for each (batch shape, dtype, device) it meets, graphs of
+``interior_point.ip_program`` over static buffers for ``z0`` and ``θ``:
+
+* fixed iterations (``opts.fixed_iters > 0``, the ``fori_loop``): one graph
+  of the whole solve, cold restarts and divergence guard included,
+  replayed once a step, with no read from the device;
+* adaptive (the ``while_loop``): a graph of ``start``, one of a loop
+  ``trip``, one of ``restart`` where ``opts.retries`` asks for it, and one
+  of ``finish``; ``start``, ``trip`` and ``restart`` also write whether a
+  problem is still live. ``trip`` is replayed while one is, with one read
+  of that flag a trip, as the eager loop reads it. One trip a replay: a
+  replayed trip costs its device time, milliseconds at these shapes,
+  against tens of microseconds for the read, so k trips between reads
+  would save little and spend up to k − 1 trips of device work past the
+  last live problem.
+
+A graph set is captured at its first call: each piece runs once eagerly on
+a side stream (the models' constants and the libraries' handles and
+workspaces are made there, outside any capture), then is captured on that
+stream, the set's graphs sharing one memory pool (they replay one after
+another on one stream, and each output is copied out before the next
+replay). A capture that fails raises: there is no eager path on the card.
+The outputs are copied out of the graphs' buffers before the call returns.
+"""
+
+from __future__ import annotations
+
+import gc
+import time
+from typing import Callable
+
+import torch
+
+from ..dims import Dims
+from ..env import LINEARIZED_CONE
+from .interior_point import (IPOptions, IPResult, IPState, ip_program,
+                             ip_solve, run_program)
+
+
+# What the sim solves of this process did on the card, summed, for the
+# smoke test and the span tool to reset and read (plain numbers, as the
+# knot kernel's launch count): solves replayed, graph sets captured, and
+# those captures' warm-up and capture seconds and device bytes.
+stats = dict.fromkeys(("replays", "sets", "warmup_s", "capture_s",
+                       "pool_bytes"), 0)
+
+
+def reset_stats():
+    for key in stats:
+        stats[key] = 0
+
+
+class _GraphSet:
+    """The captured graphs of one (batch shape, dtype, device)."""
+
+    def __init__(self, dims, residual_fn, opts, cone, z0, theta):
+        self.opts = opts
+        self.z0 = z0.clone()             # static inputs
+        self.theta = theta.clone()
+        prog = ip_program(dims, residual_fn, self.z0, self.theta, opts,
+                          cone=cone)
+        self.fixed = opts.fixed_iters > 0
+        device = z0.device
+        stream = torch.cuda.Stream(device)
+        pool = torch.cuda.graph_pool_handle()
+        t0 = time.perf_counter()
+        if not self.fixed:
+            # the adaptive loop's carry and live flag, made on the caller's
+            # stream outside the graphs' pool
+            self.state = IPState(*(x.clone() for x in prog.start(self.z0)))
+            self.flag = torch.zeros((), dtype=torch.bool, device=device)
+
+            def store(new):
+                for dst, src in zip(self.state, new):
+                    dst.copy_(src)
+                self.flag.copy_(prog.live(new).any())
+
+            pieces = {"start": lambda: store(prog.start(self.z0)),
+                      "trip": lambda: store(prog.trip(self.state)),
+                      "finish": lambda: prog.finish(self.state)}
+            if opts.retries:
+                pieces["restart"] = lambda: store(prog.restart(self.state))
+        else:
+            pieces = {"solve": lambda: run_program(prog, self.z0, opts)}
+
+        # the graphs read tensors the program made outside them (its
+        # constants): the set keeps the program, and so them, alive. It
+        # keeps no piece: they refer to the set, and a cycle would leave a
+        # dead set's graphs to the cyclic collector, which may run inside
+        # another capture
+        self.prog = prog
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            # warm-up, outside any capture: each piece once (a fixed solve
+            # through one trip, not all of its trips)
+            if self.fixed:
+                s = prog.trip(prog.start(self.z0))
+                prog.finish(prog.restart(s) if opts.retries else s)
+            else:
+                for fn in pieces.values():
+                    fn()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        t1 = time.perf_counter()
+        self.graphs, self.outputs = {}, {}
+        # no cyclic collection during a capture: freeing another set's
+        # graphs frees device memory, which invalidates the capture. The
+        # capture mode is thread_local: other threads (NCCL's watchdog on a
+        # sweep) may query the device meanwhile
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            for name, fn in pieces.items():
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.outputs[name] = fn()
+                self.graphs[name] = g
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.synchronize(device)
+        stats["sets"] += 1
+        stats["warmup_s"] += t1 - t0
+        stats["capture_s"] += time.perf_counter() - t1   # and instantiation
+        stats["pool_bytes"] += torch.cuda.memory_reserved(device) - reserved
+
+    def __call__(self, z0, theta) -> IPResult:
+        stats["replays"] += 1
+        self.z0.copy_(z0)
+        self.theta.copy_(theta)
+        if self.fixed:
+            self.graphs["solve"].replay()
+            out = self.outputs["solve"]
+        else:
+            self.graphs["start"].replay()
+            for attempt in range(self.opts.retries + 1):
+                if attempt:
+                    self.graphs["restart"].replay()
+                while bool(self.flag):        # one read a trip
+                    self.graphs["trip"].replay()
+            self.graphs["finish"].replay()
+            out = self.outputs["finish"]
+        return IPResult(*(None if x is None else x.clone() for x in out))
+
+
+class SimSolve:
+    """The sim step's ``ip_solve(dims, residual_fn, z0, θ, opts,
+    cone=cone)``: eager on CPU tensors, replayed CUDA graphs on CUDA ones
+    (the module's docstring); ``graph_sets`` holds the captured sets."""
+
+    def __init__(self, dims: Dims, residual_fn: Callable, opts: IPOptions,
+                 cone: str = LINEARIZED_CONE):
+        self.dims, self.residual_fn = dims, residual_fn
+        self.opts, self.cone = opts, cone
+        self.graph_sets = {}
+
+    def __call__(self, z0, theta) -> IPResult:
+        if not z0.is_cuda:
+            return self._eager(z0, theta)
+        return self._graphed(z0, theta)
+
+    def _eager(self, z0, theta) -> IPResult:
+        return ip_solve(self.dims, self.residual_fn, z0, theta, self.opts,
+                        cone=self.cone)
+
+    def _graphed(self, z0, theta) -> IPResult:
+        key = (tuple(z0.shape), tuple(theta.shape), z0.dtype, z0.device)
+        graphs = self.graph_sets.get(key)
+        if graphs is None:
+            graphs = self.graph_sets[key] = _GraphSet(
+                self.dims, self.residual_fn, self.opts, self.cone, z0, theta)
+        return graphs(z0, theta)

@@ -22,6 +22,9 @@ finite, keeps its state), and no value is read back to the host. Otherwise
 the adaptive loop: each problem iterates until it has converged or reached
 ``max_iter``, as under a vmapped ``while_loop``; the loop runs while any
 problem is live and reads that one flag from the device each trip.
+``ip_program`` cuts the solve at its loop into functions of tensors only
+(``IPProgram``); ``run_program`` drives them eagerly, and a sim step on the
+card replays them as CUDA graphs (``sim/graphs.py``).
 
 Solution sensitivities (``diff_sol``): ``dz = −rz⁻¹ rθ = ∂z*/∂θ`` by one
 more solve with ``nθ`` right-hand sides.
@@ -29,6 +32,7 @@ more solve with ``nθ`` right-hand sides.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
@@ -99,7 +103,7 @@ def z_initialize(dims: Dims, q, dtype=None, cone: str = LINEARIZED_CONE):
     else:
         rest = torch.full(shape, 0.1, dtype=dtype, device=q.device)
         for sl in (dims.ipsi1, dims.is2):
-            rest[..., sl.start - dims.nq:sl.stop - dims.nq] = 1.0
+            rest[..., sl.start - dims.nq:sl.stop - dims.nq].fill_(1.0)
     return torch.cat([q.to(dtype), rest], dim=-1)
 
 
@@ -143,14 +147,35 @@ def make_dense_solver(dims: Dims, jacobian_fn, opts: IPOptions,
             rz = torch.cat([rz[:, :ne], torch.cat([
                 rz[:, ne:, :nx], torch.diag_embed(y2), torch.diag_embed(y1)],
                 dim=-1)], dim=-2)
-        return torch.linalg.lu_factor_ex(rz)[:2]
+        with _capturable_linalg(rz):
+            return torch.linalg.lu_factor_ex(rz)[:2]
 
     def solve(factors, rhs):
         vec = rhs.dim() == 2
-        out = torch.linalg.lu_solve(*factors, rhs[..., None] if vec else rhs)
+        with _capturable_linalg(rhs):
+            out = torch.linalg.lu_solve(*factors,
+                                        rhs[..., None] if vec else rhs)
         return out[..., 0] if vec else out
 
     return factor, solve
+
+
+@contextlib.contextmanager
+def _capturable_linalg(like):
+    """On the card, PyTorch's LU calls with cuSOLVER's and cuBLAS's
+    batched routines for the duration of the block: for a batch of more
+    than 8 small matrices its default choice is MAGMA, whose batched LU
+    synchronises the device, which a CUDA graph (``sim/graphs.py``) cannot
+    hold. The eager solve takes the same routines, so the two agree."""
+    if not like.is_cuda:
+        yield
+        return
+    before = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(before)
 
 
 def make_ncp_schur_solver(dims: Dims, residual_fn, opts: IPOptions):
@@ -206,15 +231,29 @@ def make_ncp_schur_solver(dims: Dims, residual_fn, opts: IPOptions):
     return factor, solve
 
 
+_NC_INDEX = {}   # (dims, device): the nonlinear cone's index tensors
+
+
+def _nc_index(dims: Dims, device):
+    """The nonlinear cone's index sets (``NCConeLayout``) as tensors on
+    ``device``, made once per (dims, device) so that a solve copies nothing
+    from the host."""
+    key = (dims, torch.device(device))
+    out = _NC_INDEX.get(key)
+    if out is None:
+        lay = NCConeLayout(dims)
+        out = _NC_INDEX[key] = tuple(
+            torch.as_tensor(a, device=device)
+            for a in (lay.ort_a, lay.ort_b, lay.soc_u, lay.soc_v))
+    return out
+
+
 def _nc_tools(dims: Dims, like):
     """The nonlinear cone's step length, μ, Mehrotra correction and κ on the
     bilinear rows (it enters the orthant rows and each SOC block's first
     row) over its layout (orthant γ1 ⟂ s1, then one SOC pair a contact), on
     a batch (B, nz) of ``like``'s dtype and device."""
-    lay = NCConeLayout(dims)
-    idx = lambda a: torch.as_tensor(a, device=like.device)
-    ort_a, ort_b = idx(lay.ort_a), idx(lay.ort_b)
-    soc_u, soc_v = idx(lay.soc_u), idx(lay.soc_v)          # (nc, nf + 1)
+    ort_a, ort_b, soc_u, soc_v = _nc_index(dims, like.device)  # (nc, nf + 1)
 
     def step_length(z, d, tau):
         alpha = torch.minimum(_step_length(z[:, ort_a], d[:, ort_a], tau),
@@ -236,13 +275,40 @@ def _nc_tools(dims: Dims, like):
             d[:, soc_u], d[:, soc_v]).flatten(1)], dim=-1)
 
     kmask = like.new_zeros((dims.ny,))
-    kmask[:dims.nc] = 1.0
-    kmask[dims.nc::dims.nf + 1] = 1.0
+    kmask[:dims.nc].fill_(1.0)
+    kmask[dims.nc::dims.nf + 1].fill_(1.0)
 
     def kappa_rows(kappa):
         return kappa[:, None] * kmask
 
     return step_length, mu_of, correction, kappa_rows
+
+
+class IPState(NamedTuple):
+    """The solve loop's carry, one entry a problem."""
+
+    z: torch.Tensor       # (B, nz) iterate
+    r: torch.Tensor       # (B, nz) r(z, θ, 0)
+    rvio: torch.Tensor    # (B,) its violations
+    kvio: torch.Tensor
+    it: torch.Tensor      # (B,) int32 iterations taken
+    done: torch.Tensor    # (B,) bool converged
+
+
+class IPProgram(NamedTuple):
+    """``ip_solve`` cut at its loop into functions of tensors only, none of
+    which reads a value back to the host: ``start(z)`` is the carry at the
+    iterate ``z``; ``live(s)`` the problems the next trip advances;
+    ``trip(s)`` one masked loop trip; ``restart(s)`` a cold restart of the
+    problems that failed (``opts.retries``); ``finish(s)`` the divergence
+    guard and the sensitivities, the ``IPResult``. ``run_program`` drives
+    them eagerly; ``sim/graphs.py`` captures them as CUDA graphs."""
+
+    start: Callable
+    live: Callable
+    trip: Callable
+    restart: Callable
+    finish: Callable
 
 
 def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
@@ -269,7 +335,43 @@ def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
     ``make_ncp_schur_solver`` for the linearized cone, and to the exact
     Jacobian's dense LU (``make_dense_solver``, no γ_reg clamp) for the
     nonlinear cone, whose SOC rows have arrow-matrix Jacobians.
+
+    The loop runs eagerly (``run_program``); a sim step on the card runs
+    the same program as CUDA graphs (``sim/graphs.py``).
     """
+    return run_program(ip_program(
+        dims, residual_fn, z0, theta, opts, jacobian_fn=jacobian_fn,
+        rtheta_fn=rtheta_fn, linear_solver=linear_solver, cone=cone,
+        batched=batched), z0, opts)
+
+
+def run_program(prog: IPProgram, z0, opts: IPOptions) -> IPResult:
+    """Drive ``prog`` from ``z0``: ``opts.fixed_iters`` trips with no read
+    from the device (the ``fori_loop``), or trips while a problem is live
+    with one read of that flag a trip (the ``while_loop``); then each cold
+    restart with its own loop, then ``finish``."""
+    s = prog.start(z0)
+    for attempt in range(opts.retries + 1):
+        if attempt:
+            s = prog.restart(s)
+        if opts.fixed_iters > 0:
+            for _ in range(opts.fixed_iters):
+                s = prog.trip(s)
+        else:
+            while bool(prog.live(s).any()):   # one read a trip
+                s = prog.trip(s)
+    return prog.finish(s)
+
+
+def ip_program(dims: Dims, residual_fn: Callable, z0, theta,
+               opts: IPOptions, jacobian_fn: Optional[Callable] = None,
+               rtheta_fn: Optional[Callable] = None, linear_solver=None,
+               cone: str = LINEARIZED_CONE,
+               batched: bool = False) -> IPProgram:
+    """``ip_solve``'s program (``IPProgram``) over the tensors ``z0`` (the
+    cold restarts' configurations and the divergence guard's fallback) and
+    ``theta``, which its functions read when they are called; the
+    arguments are ``ip_solve``'s."""
     linearized = cone == LINEARIZED_CONE
     dtype = z0.dtype
     nx, ny = dims.nx, dims.ny
@@ -402,71 +504,68 @@ def ip_solve(dims: Dims, residual_fn: Callable, z0, theta, opts: IPOptions,
         rvio_n, kvio_n = _violations(dims, r_new)
         return z_new, r_new, rvio_n, kvio_n
 
-    def run_from(z):
+    def start(z):
         r = residual(z, theta, zero)
         rvio, kvio = _violations(dims, r)
         done = (rvio <= opts.r_tol) & (kvio <= opts.kappa_tol)
         it = torch.zeros((batch,), dtype=torch.int32, device=z0.device)
-        trip = 0
-        while True:
-            if opts.fixed_iters > 0:
-                if trip == opts.fixed_iters:
-                    break
-                live = ~done
-            else:
-                # the adaptive loop's one read from the device a trip
-                live = ~done & (it < opts.max_iter)
-                if not bool(live.any()):
-                    break
-            trip += 1
-            z_n, r_n, rvio_n, kvio_n = body(z, r, rvio, kvio)
-            if opts.fixed_iters > 0:
-                # a non-finite trial iterate keeps the last finite one;
-                # the adaptive loop has no such guard and a problem gone
-                # NaN iterates on to max_iter (reset after the loop)
-                live = live & torch.isfinite(z_n).all(dim=-1)
-            z = torch.where(live[:, None], z_n, z)
-            r = torch.where(live[:, None], r_n, r)
-            rvio = torch.where(live, rvio_n, rvio)
-            kvio = torch.where(live, kvio_n, kvio)
-            it = it + live.to(torch.int32)
-            done = torch.where(
-                live, (rvio_n <= opts.r_tol) & (kvio_n <= opts.kappa_tol),
-                done)
-        return z, rvio, kvio, it, done
+        return IPState(z, r, rvio, kvio, it, done)
 
-    z, rvio, kvio, it, done = run_from(z0)
+    def live(s):
+        if opts.fixed_iters > 0:
+            return ~s.done
+        return ~s.done & (s.it < opts.max_iter)
 
-    # cold-restart retries: a failed solve starts again from the cold
-    # initializer; converged problems enter with done set and iterate no
-    # further (their iteration count restarts at 0, as the reference's does)
-    for _ in range(opts.retries):
+    def trip(s):
+        lv = live(s)
+        z_n, r_n, rvio_n, kvio_n = body(s.z, s.r, s.rvio, s.kvio)
+        if opts.fixed_iters > 0:
+            # a non-finite trial iterate keeps the last finite one; the
+            # adaptive loop has no such guard and a problem gone NaN
+            # iterates on to max_iter (reset by ``finish``)
+            lv = lv & torch.isfinite(z_n).all(dim=-1)
+        return IPState(
+            torch.where(lv[:, None], z_n, s.z),
+            torch.where(lv[:, None], r_n, s.r),
+            torch.where(lv, rvio_n, s.rvio),
+            torch.where(lv, kvio_n, s.kvio),
+            s.it + lv.to(torch.int32),
+            torch.where(lv, (rvio_n <= opts.r_tol)
+                        & (kvio_n <= opts.kappa_tol), s.done))
+
+    def restart(s):
+        # cold-restart retries: a failed solve starts again from the cold
+        # initializer; converged problems enter with done set and iterate
+        # no further (their iteration count restarts at 0, as the
+        # reference's does)
         z_cold = z_initialize(dims, z0[:, dims.iq2], dtype, cone=cone)
-        z, rvio, kvio, it, done = run_from(
-            torch.where(done[:, None], z, z_cold))
+        return start(torch.where(s.done[:, None], s.z, z_cold))
 
-    # divergence guard: a non-finite solve returns the (finite) initial
-    # iterate marked non-converged (rvio/kvio keep the diverged values)
-    bad = ~torch.isfinite(z).all(dim=-1)
-    z = torch.where(bad[:, None], z0, z)
-    done = done & ~bad
+    def finish(s):
+        # divergence guard: a non-finite solve returns the (finite) initial
+        # iterate marked non-converged (rvio/kvio keep the diverged values)
+        bad = ~torch.isfinite(s.z).all(dim=-1)
+        z = torch.where(bad[:, None], z0, s.z)
+        done = s.done & ~bad
 
-    dz = None
-    if opts.diff_sol:
-        if rtheta_fn is not None:
-            rtheta = (rtheta_fn if batched else vmap(rtheta_fn))(z, theta)
-        elif batched:
-            raise ValueError("ip_solve: diff_sol with batched callables "
-                             "needs rtheta_fn")
-        else:
-            rtheta = vmap(lambda zz, th: jacfwd(
-                lambda t: residual_fn(zz, t, 0.0))(th))(z, theta)
-        dz = refined(z, kvio, factor_fn(z, theta, kvio), -rtheta)
-        # a singular factorization can give non-finite sensitivities at a
-        # finite z: zero them and flag the problem
-        dz_bad = ~torch.isfinite(dz).all(dim=-1).all(dim=-1)
-        dz = torch.where(dz_bad[:, None, None], torch.zeros_like(dz), dz)
-        done = done & ~dz_bad
+        dz = None
+        if opts.diff_sol:
+            if rtheta_fn is not None:
+                rtheta = (rtheta_fn if batched else vmap(rtheta_fn))(z, theta)
+            elif batched:
+                raise ValueError("ip_solve: diff_sol with batched callables "
+                                 "needs rtheta_fn")
+            else:
+                rtheta = vmap(lambda zz, th: jacfwd(
+                    lambda t: residual_fn(zz, t, 0.0))(th))(z, theta)
+            dz = refined(z, s.kvio, factor_fn(z, theta, s.kvio), -rtheta)
+            # a singular factorization can give non-finite sensitivities at
+            # a finite z: zero them and flag the problem
+            dz_bad = ~torch.isfinite(dz).all(dim=-1).all(dim=-1)
+            dz = torch.where(dz_bad[:, None, None], torch.zeros_like(dz), dz)
+            done = done & ~dz_bad
 
-    return IPResult(z=z, converged=done, iterations=it, rvio=rvio,
-                    kvio=kvio, dz=dz)
+        return IPResult(z=z, converged=done, iterations=s.it, rvio=s.rvio,
+                        kvio=s.kvio, dz=dz)
+
+    return IPProgram(start, live, trip, restart, finish)

@@ -25,7 +25,8 @@ import torch
 from ..device import resolve_device
 from ..models.base import Model, dims_of
 from ..utils.spans import span
-from .interior_point import IPOptions, ip_solve, z_initialize
+from .graphs import SimSolve
+from .interior_point import IPOptions, z_initialize
 from .residual import pack_theta, residual
 
 
@@ -216,7 +217,9 @@ def simulate(model: Model, env, horizon: int, h: float, q1, v1, policy=None,
 
     Equivalent of ``simulator(...)`` + ``simulate!(sim, q1, v1)``
     (simulator.jl:15-63). ``q0 = q1 − h v1`` seeds the two-configuration
-    state of the variational integrator.
+    state of the variational integrator. Each step's interior-point solve
+    is ``graphs.SimSolve``'s: replayed CUDA graphs on the card, eager on
+    the CPU.
 
     ``live_plotter`` (``utils.live.LivePlotter``) receives each step's
     ``(t, q2, u, gamma)`` of every lane (B, ·) and plots lane 0 — the
@@ -238,6 +241,7 @@ def simulate(model: Model, env, horizon: int, h: float, q1, v1, policy=None,
     def r_fn(z, th, kap):
         return residual(model, env, z, th, kap)
 
+    solve = SimSolve(dims, r_fn, opts, cone=env.cone)
     qa, qb = q0, q1
     pstate, dstate = policy_init(batch), dist_init(batch)
     gamma = q1.new_zeros((batch, dims.nc))
@@ -248,7 +252,7 @@ def simulate(model: Model, env, horizon: int, h: float, q1, v1, policy=None,
         theta = pack_theta(qa, qb, u, w, mu, h)
         z0 = z_initialize(dims, qb, cone=env.cone)
         with span("sim_ip", theta):
-            res = ip_solve(dims, r_fn, z0, theta, opts, cone=env.cone)
+            res = solve(z0, theta)
         q2 = res.z[:, dims.iq2]
         gamma = res.z[:, dims.igamma1]
         if live_plotter is not None:

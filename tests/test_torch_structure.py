@@ -271,3 +271,34 @@ def test_shift_state_and_modes_match_jax(gait):
     jd = JDims(**dataclasses.asdict(dims))
     for mode in (CONFIGURATION, CONFIGURATION_FORCE):
         assert nd_of(dims, mode) == jnd_of(jd, mode)
+
+
+@pytest.mark.parametrize("velocity", [False, True])
+def test_structure_objective_from_tracking_matches_jax(gait, velocity):
+    """The stage blocks of a tracking objective with and without velocity
+    weights (a ``TrackingVelocityObjective``'s v weights enter the stage
+    blocks, as tests/test_mpc_structure_mode.py's objective has them), to
+    1e-12, on seeded numpy weights."""
+    from contactimplicitmpc_tpu.control import objective as jo
+
+    from contactimplicitmpc_tpu_torch.control import objective as to
+
+    dims, _ = gait
+    h = HotPathConfig().h_mpc
+    rng = np.random.default_rng(9)
+    w = dict(q=rng.uniform(0.1, 1.0, (h, dims.nq)),
+             u=rng.uniform(0.1, 1.0, (h, dims.nu)))
+    if velocity:
+        w["v"] = rng.uniform(0.1, 1.0, (h, dims.nq))
+    make_t = (to.tracking_velocity_objective if velocity
+              else to.tracking_objective)
+    make_j = (jo.tracking_velocity_objective if velocity
+              else jo.tracking_objective)
+    got = ss.structure_objective_from_tracking(
+        dims, make_t(dims, h, dtype=F64, device="cpu", **w), 1e-5, h)
+    jd = JDims(**dataclasses.asdict(dims))
+    want = jss.structure_objective_from_tracking(
+        jd, make_j(jd, h, dtype=jnp.float64, **w), 1e-5, h, jnp.float64)
+    for g, x in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(x), rtol=0,
+                                   atol=1e-12)
