@@ -6,9 +6,11 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device — require CUDA, print the card's name and power limit, pin full
    float32 products;
-2. build — compile the knot interior-point kernel (csrc/knot_ip.cu) from
-   this checkout with nvcc; one build holds the ten instantiations, one for
-   the dimensions of each model of the JAX package (ops/knot_ip.py's
+2. build — compile the port's two kernels from this checkout with nvcc,
+   both at once (one nvcc a source): the quadruped's sim step
+   (csrc/sim_ip.cu, float32 and float64) and the knot interior-point
+   kernel (csrc/knot_ip.cu), whose one build holds the ten instantiations,
+   one for the dimensions of each model of the JAX package (ops/knot_ip.py's
    KNOT_IP_MODELS, a warp a problem: quadruped, 2D hopper, flamingo, 2D
    particle, pushbot, walled cartpole; KNOT_IP_WIDE_MODELS, a block a
    problem: centroidal quadruped, 3D particle, 3D hopper, centroidal
@@ -152,28 +154,48 @@ Phases (any failure raises and the script exits non-zero):
    held as tests/test_torch_contracts_cuda.py runs and holds it: every
    step converges, the tracking errors under 1.5 × the reference's;
 19. graphs — the sim solve's replayed CUDA graphs (``sim/graphs.py``)
-   against its eager body (``SimSolve._eager``) on one sim step each of
-   paths A (fixed iterations, float32), B (adaptive, float32) and G (the
-   nonlinear cone's dense LU, float64), and on a 20-step ``simulate`` of
-   path B: bit for bit, with each step's replayed and eager time and its
-   graphs' warm-up, capture and pool memory.
+   against its eager body (``SimSolve._eager``) on one sim step each of the
+   quadruped on the piecewise slope (a terrain the sim kernel does not
+   take; fixed iterations, float32, the quadruped's residual), path B
+   (adaptive, float32) and path G (the nonlinear cone's dense LU,
+   float64), and on a 20-step ``simulate`` of path B: bit for bit, with
+   each step's replayed and eager time and its graphs' warm-up, capture
+   and pool memory;
+20. phase S — the sim kernel (csrc/sim_ip.cu over csrc/sim_ip.cuh,
+   ``ops/sim_ip.py``) against its
+   plain version, ``ip_program``'s replayed graphs of the same solve
+   (``SimSolve._graphed``), on every sim step of a plain run of path A
+   (16 lanes × 10 steps, recorded by tests/test_torch_sim_ip_cuda.py's
+   ``record_states``): in float64 with the hot path's options, phase L's
+   and ``simulate``'s (25 halvings, 52 candidates), converged flags equal
+   on every problem and |Δz| ≤ 1e-8 on every converged one; in float32
+   with the hot path's and phase L's, within the limits the test file sets
+   from the spread of two correct float32 solves (``F32_LIMITS``,
+   tools/sim_ip_spread.py); then a sim step's time at 16 lanes and at 1
+   lane, kernel against graph replay (CUDA events), and the kernel's
+   bound (``ops/sim_ip.py::bound_ms``) from the trips the problems took,
+   at float32's rate (the tensors' type; the kernel computes in float64).
 
-Every sim step of every path runs its interior-point solve as replayed
-CUDA graphs: each counted run resets ``sim.graphs.stats`` and requires one
-replay a sim step, and the script prints the graphs' counts a path.
+Every sim step of paths A, C and L is one launch of the sim kernel, and
+every sim step of every other path a replay of the sim solve's CUDA
+graphs: each counted run resets both counts and requires it, and the
+script prints them a path.
 
 The spans and device traces of one control period of each MPC path are
 tools/torch_profile_paths.py's.
 
-JSON lines give the bound and the kernel's share of it at each timed
-shape; the line before the card's name is a JSON object with the kernel's
-comparison, launches (summed over the nine MPC paths, and by path), times and
-bound at path A's N = 1008 and, in ``instantiations``, each of the ten
-with its dimensions, template, models, paths and launches and its time,
-plain time, bound and share at its path's N; the last line is
-``{"ok": true, "device": {...}}``.
+JSON lines give the bound and the knot kernel's share of it at each timed
+shape; the line before the card's name is a JSON object with both kernels:
+the knot kernel's comparison, launches (summed over the nine MPC paths,
+and by path), times and bound at path A's N = 1008 and, in
+``instantiations``, each of the ten with its dimensions, template, models,
+paths and launches and its time, plain time, bound and share at its path's
+N; the sim kernel's largest float64 |Δz|, launches on A, C and L, and its
+time, the graph replay's and its bound for a sim step of path A's 16
+lanes. The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import concurrent.futures
 import dataclasses
 import importlib.util
 import json
@@ -220,9 +242,11 @@ from contactimplicitmpc_tpu_torch.models.particle import particle
 from contactimplicitmpc_tpu_torch.models.particle_2d import particle_2d
 from contactimplicitmpc_tpu_torch.models.point_foot_quadruped import \
     point_foot_quadruped
+from contactimplicitmpc_tpu_torch.models.quadruped import quadruped
 from contactimplicitmpc_tpu_torch.ops import knot_ip as knot_mod
 from contactimplicitmpc_tpu_torch.ops.fixed_ip import linearized_ip_fixed
 from contactimplicitmpc_tpu_torch.ops.knot_ip import knot_ip
+from contactimplicitmpc_tpu_torch.ops import sim_ip as sim_mod
 from contactimplicitmpc_tpu_torch.parallel import (distributed, make_mesh,
                                                    make_sharded_mpc_rollouts,
                                                    monte_carlo_rollouts,
@@ -231,7 +255,7 @@ from contactimplicitmpc_tpu_torch.sim import graphs
 from contactimplicitmpc_tpu_torch.sim.graphs import SimSolve
 from contactimplicitmpc_tpu_torch.sim.interior_point import (IPOptions,
                                                              z_initialize)
-from contactimplicitmpc_tpu_torch.sim.residual import pack_theta, residual
+from contactimplicitmpc_tpu_torch.sim.residual import pack_theta
 from contactimplicitmpc_tpu_torch.sim.simulator import default_sim_options
 from contactimplicitmpc_tpu_torch.utils.gaits import load_gait
 from contactimplicitmpc_tpu_torch.utils.visuals import (plot_runs_2d,
@@ -349,8 +373,13 @@ E_STEPS = 50
 # Path C's depth: tests/test_hotpath.py's 100 steps, now that the sim steps
 # are replayed graphs
 C_STEPS = 100
-# the sim graphs' counts of each path's counted run (``counted``)
+# the sim graphs' counts and the sim kernel's launches of each path's
+# counted run (``counted``)
 GRAPHS = {}
+SIM_LAUNCHES = {}
+# the paths whose sim steps the sim kernel takes (the quadruped on flat
+# ground); every other path's are graph replays
+KERNEL_PATHS = ("path A", "path C", "phase L")
 TESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
 
 SPIN_CYCLES = 60_000_000   # ≈ 35 ms of device spin ahead of timed launches
@@ -599,20 +628,28 @@ def lane_success(converged):
 
 
 def counted(path, steps, fn):
-    """Run ``fn``, ``steps`` sim steps of ``path``, with the kernel's launch
-    count and the sim graphs' counts (``sim.graphs.stats``) set to 0 just
-    before and read just after: (result, launches, wall seconds). Every sim
-    step's solve must be a graph replay, one a step; the graphs' counts go
-    into ``GRAPHS[path]``."""
+    """Run ``fn``, ``steps`` sim steps of ``path``, with the knot kernel's
+    and the sim kernel's launch counts and the sim graphs' counts
+    (``sim.graphs.stats``) set to 0 just before and read just after:
+    (result, knot launches, wall seconds). Every sim step's solve of the
+    ``KERNEL_PATHS`` must be one launch of the sim kernel, and of every
+    other path one graph replay; the counts go into ``GRAPHS[path]`` and
+    ``SIM_LAUNCHES[path]``."""
     torch.cuda.synchronize()
     knot_ip.launches = 0
+    sim_mod.sim_ip.launches = 0
     graphs.reset_stats()
     t0 = time.time()
     out = fn()
     torch.cuda.synchronize()
     wall = time.time() - t0
     GRAPHS[path] = {"steps": steps, **graphs.stats}
-    assert graphs.stats["replays"] == steps, (path, graphs.stats, steps)
+    SIM_LAUNCHES[path] = sim_mod.sim_ip.launches
+    kernel = path in KERNEL_PATHS
+    want = (steps, 0) if kernel else (0, steps)
+    got = (sim_mod.sim_ip.launches, graphs.stats["replays"])
+    assert got == want, (path, "sim kernel launches and graph replays", got,
+                         want)
     return out, knot_ip.launches, wall
 
 
@@ -1433,9 +1470,11 @@ def raibert_path(dev, tag):
 
 
 def sim_step_problem(dev, name, dtype):
-    """One sim step of 16 lanes of a path's model: (dims, residual, z0, θ,
-    cone, options). ``A``: the quadruped at tests/test_hotpath.py's lanes
-    with the hot path's sim options (24 fixed iterations, float32); ``B``:
+    """One sim step of 16 lanes of a path's model: (model, terrain, z0, θ,
+    options). ``Q``: the quadruped at tests/test_hotpath.py's lanes on the
+    piecewise slope (piecewise1_2d_lc, a terrain the sim kernel does not
+    take) with the hot path's sim options (24 fixed iterations, float32);
+    ``B``:
     the 2D hopper at path B's lanes with its adaptive float32 options;
     ``G``: the 3D particle on flat_3d_nc at path G's slide velocities, 0.02
     above the ground and falling at 1, with the simulator's defaults
@@ -1443,10 +1482,11 @@ def sim_step_problem(dev, name, dtype):
     0.1 · N(0, 1) from numpy.random.default_rng(11)."""
     rng = np.random.default_rng(11)
     kw = dict(dtype=dtype, device=dev)
-    if name == "A":
+    if name == "Q":
         cfg = HotPathConfig()
-        _, ref, model, env, dims = make_quadruped_rollout(cfg, 5, dtype,
-                                                          device=dev)
+        _, ref, model, _, dims = make_quadruped_rollout(cfg, 5, dtype,
+                                                        device=dev)
+        env = pt.piecewise1_2d_lc
         q1, v1 = conf_initial_states(model, ref)
         h, opts = float(ref.h) / cfg.n_sample, cfg.sim_ip_options()
     elif name == "B":
@@ -1474,17 +1514,14 @@ def sim_step_problem(dev, name, dtype):
     theta = pack_theta(q1 - h * v1, q1, u, torch.zeros((16, dims.nw), **kw),
                        model.mu_world, h)
     z0 = z_initialize(dims, q1, cone=env.cone)
-
-    def r_fn(z, th, kap):
-        return residual(model, env, z, th, kap)
-
-    return dims, r_fn, z0, theta, env.cone, opts
+    return model, env, z0, theta, opts
 
 
 def graph_phase(dev, tag):
     """The sim solve's replayed graphs against its eager body
     (``SimSolve._eager``, ``ip_solve``) on the card: one sim step each of
-    path A's solve (24 fixed iterations, float32), path B's (adaptive,
+    the quadruped's solve on the piecewise slope (24 fixed iterations,
+    float32; on flat ground the sim kernel takes it), path B's (adaptive,
     float32) and path G's (the nonlinear cone's dense LU, float64), and a
     20-step ``simulate`` of path B's rollout, its sim steps run both ways.
     Every output agrees bit for bit: the graphs replay the same kernels on
@@ -1496,11 +1533,11 @@ def graph_phase(dev, tag):
                 for k, a, b in zip(got._fields, got, want)}
         assert all(v is not False for v in diff.values()), (name, diff)
 
-    for name, dtype in (("A", torch.float32), ("B", torch.float32),
+    for name, dtype in (("Q", torch.float32), ("B", torch.float32),
                         ("G", torch.float64)):
-        dims, r_fn, z0, theta, cone, opts = sim_step_problem(dev, name,
-                                                             dtype)
-        solve = SimSolve(dims, r_fn, opts, cone=cone)
+        model, env, z0, theta, opts = sim_step_problem(dev, name, dtype)
+        solve = SimSolve(model, env, opts)
+        assert solve.route(z0) == "graphs", name
         graphs.reset_stats()
         got = solve(z0, theta)
         stats = dict(graphs.stats)
@@ -1508,7 +1545,7 @@ def graph_phase(dev, tag):
         step_eager = cuda_ms(lambda: solve._eager(z0, theta), 2)
         want = solve._eager(z0, theta)
         equal(name, got, want)
-        print(f"graphs: path {name}'s sim step (16 lanes, {dtype}, "
+        print(f"graphs: {'the quadruped on the piecewise slope' if name == 'Q' else 'path ' + name}'s sim step (16 lanes, {dtype}, "
               f"{'fixed ' + str(opts.fixed_iters) if opts.fixed_iters else 'adaptive'}"
               f" iterations; mean {float(got.iterations.float().mean()):.3f}, "
               f"{int(got.converged.sum())}/16 converged) replayed = eager "
@@ -1530,6 +1567,66 @@ def graph_phase(dev, tag):
     print(f"graphs: path B's simulate, 16 lanes x 20 steps, replayed = "
           f"eager bit for bit; {t1 - t0:.2f} s replayed (captures included) "
           f"against {t2 - t1:.2f} s eager {tag}", flush=True)
+
+
+def sim_kernel_phase(dev, tag):
+    """Phase S: the sim kernel against its plain version (the replayed
+    graphs of ``ip_program``) on every sim step of a plain run of path A,
+    float64 and float32, then a sim step's time (the module's docstring);
+    returns the kernel's largest float64 |Δz| and its time, the graph
+    replay's and its bound for a sim step of path A's 16 lanes."""
+    sys.path.insert(0, TESTS)
+    import test_torch_sim_ip_cuda as sim_tests
+    t0 = time.time()
+    z32, th32 = sim_tests.record_states(dev)
+    print(f"phase S: the {z32.shape[0]} sim steps of a plain run of path A "
+          f"(16 lanes x {sim_tests.STEPS} steps) recorded in "
+          f"{time.time() - t0:.2f} s {tag}", flush=True)
+    err = 0.0
+    for name, opts in sim_tests.OPTIONS.items():
+        got, want = sim_tests.both(quadruped, z32.double(), th32.double(),
+                                   opts)
+        same, gap = sim_tests.f64_gaps(got, want)
+        print(f"phase S: float64, {name} options: converged "
+              f"{int(got.converged.sum())} / {int(want.converged.sum())} "
+              f"(kernel / plain), flags equal {same}, largest |dz| over the "
+              f"converged {gap:.3g}, iterations "
+              f"{float(got.iterations.float().mean()):.3f} / "
+              f"{float(want.iterations.float().mean()):.3f} {tag}",
+              flush=True)
+        assert same and gap <= sim_tests.F64_Z, (name, same, gap)
+        err = max(err, gap)
+    for name in ("hot_path", "phase_L"):
+        got, want = sim_tests.both(quadruped, z32, th32,
+                                   sim_tests.OPTIONS[name])
+        spread = sim_tests.f32_spread(got, want,
+                                      sim_tests.F32_LIMITS["z_tol"])
+        print(f"phase S: float32, {name} options: {json.dumps(spread)} "
+              f"against the limits {json.dumps(sim_tests.F32_LIMITS)}, "
+              f"converged {int(got.converged.sum())} / "
+              f"{int(want.converged.sum())} {tag}", flush=True)
+        sim_tests.check_f32(got, want)
+    times = {}
+    for lanes, name in ((16, "hot_path"), (1, "hot_path"), (1, "phase_L")):
+        opts = sim_tests.OPTIONS[name]
+        z0, theta = z32[:lanes].contiguous(), th32[:lanes].contiguous()
+        solve = SimSolve(quadruped, flat_2d_lc, opts)
+        kernel = cuda_ms(lambda: solve(z0, theta), 20, spin=True)
+        plain = cuda_ms(lambda: solve._graphed(z0, theta), 5)
+        trips = int(solve(z0, theta).iterations.sum())
+        bound, by = sim_mod.bound_ms(lanes, trips, opts, 4)
+        times[lanes, name] = (kernel, plain, bound, by)
+        print(f"phase S: a sim step of {lanes} lane(s), float32, {name} "
+              f"options ({trips} trips in all): kernel {kernel:.4f} ms, "
+              f"graph replay {plain:.4f} ms, bound {bound:.6f} ms "
+              f"({by}), {bound / kernel:.2%} of it {tag}", flush=True)
+        print(json.dumps({"sim_ip_bound": {
+            "lanes": lanes, "options": name, "trips": trips, "ms": kernel,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "card": tag[1:-1]}}), flush=True)
+    kernel, plain, bound, by = times[16, "hot_path"]
+    return {"max_abs_err": err, "ms": kernel, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by}
 
 
 def contract_path(dev, tag):
@@ -1566,10 +1663,13 @@ def main():
     dev = torch.device("cuda")
     t_start = time.time()
 
-    # ---- 2. build ----------------------------------------------------------
+    # ---- 2. build: one nvcc a source, both at once -------------------------
     t0 = time.time()
-    lib = knot_mod.build(verbose=True)
-    print(f"build: {lib} in {time.time() - t0:.1f} s", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda mod: mod.build(verbose=True),
+                             (knot_mod, sim_mod)))
+    print(f"build: {', '.join(libs)} in {time.time() - t0:.1f} s",
+          flush=True)
 
     # ---- 3. the quadruped's instantiation ----------------------------------
     cfg = HotPathConfig()
@@ -1636,7 +1736,6 @@ def main():
             converged_only=False)
         phases[name] = (err, times, (16 * 7 * k, k))
 
-    # ---- 9-15, 18. the nine MPC paths ------------------------------------------
     walls = {}
 
     def timed(name, fn, *args):
@@ -1645,6 +1744,7 @@ def main():
         walls[name] = time.time() - t0
         return out
 
+    # ---- 9-15, 18. the nine MPC paths ------------------------------------------
     launches = {
         "A": timed("A", quadruped_path, "path A", cfg, 100, dev, tag, True),
         "B": timed("B", hopper_path, dev, tag),
@@ -1662,9 +1762,14 @@ def main():
     timed("H", raibert_path, dev, tag)
     timed("J", two_process_phase, dev, tag)
     timed("graphs", graph_phase, dev, tag)
-    print("sim graphs of each counted run (one replay a sim step; sets "
-          "captured, their warm-up and capture seconds and pool bytes): "
-          + json.dumps(GRAPHS) + f" {tag}", flush=True)
+    # ---- 20. the sim kernel against its plain version ------------------------
+    sim_entry = timed("S", sim_kernel_phase, dev, tag)
+    print("sim graphs of each counted run (one replay a sim step but on "
+          "A, C and L; sets captured, their warm-up and capture seconds and "
+          "pool bytes): " + json.dumps(GRAPHS) + f" {tag}", flush=True)
+    print("sim kernel launches of each counted run (one a sim step on A, C "
+          "and L, none elsewhere): " + json.dumps(SIM_LAUNCHES) + f" {tag}",
+          flush=True)
     print("phase walls (s, each with its warm-up and checks): "
           + json.dumps({k: round(v, 2) for k, v in walls.items()})
           + f" {tag}", flush=True)
@@ -1698,6 +1803,7 @@ def main():
                 "paths": list(paths),
                 "launches": sum(launches[p] for p in paths)})
     main_q = phases["quadruped"][1][(1008, stages)]
+    sim_launches = {p[-1]: SIM_LAUNCHES[p] for p in KERNEL_PATHS}
     print(json.dumps({"kernels": [{
         "name": "knot_ip", "route": "cuda",
         "source": "contactimplicitmpc_tpu_torch/csrc/knot_ip.cu",
@@ -1707,7 +1813,12 @@ def main():
         "ms": main_q[0], "plain_ms": main_q[1], "bound_ms": main_q[2],
         "bound_by": main_q[3], "library_ms": None,
         "launches_by_path": launches,
-        "instantiations": instantiations}]}))
+        "instantiations": instantiations}, {
+        "name": "sim_ip", "route": "cuda",
+        "source": "contactimplicitmpc_tpu_torch/csrc/sim_ip.cu",
+        "replaces": "contactimplicitmpc_tpu/sim/interior_point.py:432",
+        "launches": sum(sim_launches.values()), **sim_entry,
+        "library_ms": None, "launches_by_path": sim_launches}]}))
     print(f"chip_smoke: every phase after the device check in "
           f"{time.time() - t_start:.1f} s {tag}", flush=True)
     torch.distributed.destroy_process_group()

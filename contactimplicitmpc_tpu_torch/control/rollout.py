@@ -11,7 +11,8 @@ loops over time with all lanes in each tensor. With fixed-iteration
 solves (``sim_opts.fixed_iters``, ``n_opts.fixed_newton_iters`` or
 structure mode) no value is read back to the host until the rollout
 returns; the adaptive loops read one flag a trip. The sim steps' solves
-are ``sim.graphs.SimSolve``'s: replayed CUDA graphs on the card.
+are ``sim.graphs.SimSolve``'s: on the card one launch of the sim kernel
+for the quadruped on flat ground, replayed CUDA graphs otherwise.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 from ..models.base import Model, dims_of
 from ..sim.graphs import SimSolve
 from ..sim.interior_point import IPOptions, z_initialize
-from ..sim.residual import pack_theta, residual
+from ..sim.residual import pack_theta
 from ..utils.spans import span
 from .implicit_dynamics import (CONFIGURATION, default_mpc_ip_options,
                                 nd_of)
@@ -127,10 +128,7 @@ def mpc_rollout(model: Model, env, ref_traj: ContactTraj, obj,
     sim_model = sim_model or model
     sim_env = sim_env or env
 
-    def r_fn(z, th, kap):
-        return residual(sim_model, sim_env, z, th, kap)
-
-    sim_solve = SimSolve(dims, r_fn, sim_opts)
+    sim_solve = SimSolve(sim_model, sim_env, sim_opts)
 
     mu = model.mu_world
     # external disturbance forces per sim step, applied as given (zero if

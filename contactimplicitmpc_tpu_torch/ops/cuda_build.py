@@ -1,0 +1,65 @@
+"""Building the port's CUDA sources: ``nvcc`` into a shared library with a
+plain C interface, loaded by the wrappers with ``ctypes``.
+
+A library is compiled at first use from the repository's source into
+``build/`` (listed in ``.gitignore``), named by the hash of the source, the
+headers it includes and the flags, and reused while they stay the same.
+Building needs the CUDA toolkit: ``nvcc`` on the path, or under
+``$CUDA_HOME`` or ``/usr/local/cuda``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the port's kernels need the CUDA "
+                           "toolkit to build")
+    return path
+
+
+def build(source: str, verbose: bool = False, deps=(), defines=()) -> str:
+    """Compile ``source`` with the extra flags ``defines`` (``-D...``) into
+    ``build/`` unless a library of the same hash of the source, its headers
+    ``deps`` and the flags is there; returns the library's path.
+    ``verbose`` prints what ``-Xptxas -v`` says of each kernel (registers,
+    shared memory, spills)."""
+    flags = [*NVCC_FLAGS, *defines]
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in (source, *deps):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    stem = os.path.splitext(os.path.basename(source))[0]
+    lib = os.path.join(BUILD_DIR, f"{stem}_{digest.hexdigest()[:16]}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *flags, "-Xptxas", "-v", "-o", tmp, source]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if verbose:
+        print(proc.stderr, end="")
+    os.replace(tmp, lib)
+    return lib

@@ -25,20 +25,14 @@ tensors.
 them into the kernel's bound on an H100.
 
 The kernel is compiled from the repository's source with ``nvcc`` at first
-use into ``build/`` (keyed on the source's hash) and loaded with
-``ctypes``; building needs the CUDA toolkit (``nvcc`` on the path, or
-under ``$CUDA_HOME`` or ``/usr/local/cuda``).
+use into ``build/`` (``cuda_build.py``) and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 from typing import NamedTuple
 
 import torch
@@ -46,50 +40,19 @@ import torch
 from ..dims import Dims
 from ..sim.interior_point import IPOptions
 from ..utils.spans import span
+from . import cuda_build
+from .cuda_build import CSRC
 from .fixed_ip import FixedIPResult, knot_blocks, linearized_ip_fixed
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                      "csrc", "knot_ip.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = os.path.join(CSRC, "knot_ip.cu")
 
 _lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the knot kernel needs the CUDA "
-                           "toolkit to build")
-    return path
-
-
 def build(verbose: bool = False) -> str:
-    """Compile ``csrc/knot_ip.cu`` into ``build/`` unless a library of the
-    same source hash is there; returns the library's path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib = os.path.join(BUILD_DIR, f"knot_ip_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, lib)
-    return lib
+    """Compile ``csrc/knot_ip.cu`` into ``build/`` (``cuda_build.build``);
+    returns the library's path."""
+    return cuda_build.build(SOURCE, verbose)
 
 
 def _load():

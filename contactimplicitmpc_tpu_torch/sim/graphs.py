@@ -7,11 +7,12 @@ interior_point.py``). PyTorch dispatches each op of a loop trip from
 Python, ≈ 1.2k small kernels a trip on the quadruped; a CUDA graph captures
 them once and a replay launches them all with one call.
 
-``SimSolve(dims, residual_fn, opts, cone)`` is the solve ``simulate`` and
+``SimSolve(model, env, opts)`` is the solve ``simulate`` and
 ``mpc_rollout`` call each sim step, ``solve(z0, θ) -> IPResult``; each
-caller makes its own once a rollout, since ``residual_fn`` is a closure
-made there. On CPU tensors it is ``ip_solve``. On CUDA tensors it keeps,
-for each (batch shape, dtype, device) it meets, graphs of
+caller makes its own once a rollout. On CPU tensors it is ``ip_solve``.
+On CUDA tensors a model and terrain with a hand-written kernel
+(``ops.sim_ip.KERNELS``: today the quadruped on flat ground) take it, the
+whole solve in one launch; every other model or terrain keeps, for each (batch shape, dtype, device) it meets, graphs of
 ``interior_point.ip_program`` over static buffers for ``z0`` and ``θ``:
 
 * fixed iterations (``opts.fixed_iters > 0``, the ``fori_loop``): one graph
@@ -45,9 +46,11 @@ from typing import Callable
 import torch
 
 from ..dims import Dims
-from ..env import LINEARIZED_CONE
+from ..models.base import Model, dims_of
+from ..ops import sim_ip
 from .interior_point import (IPOptions, IPResult, IPState, ip_program,
                              ip_solve, run_program)
+from .residual import residual
 
 
 # What the sim solves of this process did on the card, summed, for the
@@ -159,25 +162,53 @@ class _GraphSet:
         return IPResult(*(None if x is None else x.clone() for x in out))
 
 
-class SimSolve:
-    """The sim step's ``ip_solve(dims, residual_fn, z0, θ, opts,
-    cone=cone)``: eager on CPU tensors, replayed CUDA graphs on CUDA ones
-    (the module's docstring); ``graph_sets`` holds the captured sets."""
+def _residual_of(model, env):
+    """The residual of ``model`` on ``env`` as a function of one sample; a
+    closure over the two alone, so that a graph set, which keeps its
+    program and so this function, refers to no ``SimSolve``."""
+    def residual_fn(z, theta, kappa):
+        return residual(model, env, z, theta, kappa)
 
-    def __init__(self, dims: Dims, residual_fn: Callable, opts: IPOptions,
-                 cone: str = LINEARIZED_CONE):
-        self.dims, self.residual_fn = dims, residual_fn
-        self.opts, self.cone = opts, cone
+    return residual_fn
+
+
+class SimSolve:
+    """The sim step's solve of ``model`` on ``env``, ``ip_solve(dims,
+    residual, z0, θ, opts, cone=env.cone)``, by a route decided from the
+    tensors' device, the model and the terrain, never from a failure
+    (``route``): ``"eager"`` on CPU tensors; ``"kernel"`` on CUDA tensors
+    for a model and terrain that ``ops.sim_ip.KERNELS`` lists (one launch a
+    step, counted in ``sim_ip.launches``); ``"graphs"`` for every other
+    model or terrain on CUDA tensors (the module's docstring;
+    ``graph_sets`` holds the captured sets, ``stats`` counts their
+    replays)."""
+
+    def __init__(self, model: Model, env, opts: IPOptions):
+        self.model, self.env, self.opts = model, env, opts
+        self.dims: Dims = dims_of(model, env)
+        self.cone = env.cone
+        self.residual_fn: Callable = _residual_of(model, env)
         self.graph_sets = {}
 
-    def __call__(self, z0, theta) -> IPResult:
+    def route(self, z0) -> str:
         if not z0.is_cuda:
+            return "eager"
+        return "kernel" if sim_ip.takes(self.model, self.env) else "graphs"
+
+    def __call__(self, z0, theta) -> IPResult:
+        route = self.route(z0)
+        if route == "eager":
             return self._eager(z0, theta)
+        if route == "kernel":
+            return self._kernel(z0, theta)
         return self._graphed(z0, theta)
 
     def _eager(self, z0, theta) -> IPResult:
         return ip_solve(self.dims, self.residual_fn, z0, theta, self.opts,
                         cone=self.cone)
+
+    def _kernel(self, z0, theta) -> IPResult:
+        return sim_ip.sim_ip(self.model, self.env, z0, theta, self.opts)
 
     def _graphed(self, z0, theta) -> IPResult:
         key = (tuple(z0.shape), tuple(theta.shape), z0.dtype, z0.device)

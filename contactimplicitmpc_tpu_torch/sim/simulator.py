@@ -27,7 +27,7 @@ from ..models.base import Model, dims_of
 from ..utils.spans import span
 from .graphs import SimSolve
 from .interior_point import IPOptions, z_initialize
-from .residual import pack_theta, residual
+from .residual import pack_theta
 
 
 class PolicyObs(NamedTuple):
@@ -218,8 +218,9 @@ def simulate(model: Model, env, horizon: int, h: float, q1, v1, policy=None,
     Equivalent of ``simulator(...)`` + ``simulate!(sim, q1, v1)``
     (simulator.jl:15-63). ``q0 = q1 − h v1`` seeds the two-configuration
     state of the variational integrator. Each step's interior-point solve
-    is ``graphs.SimSolve``'s: replayed CUDA graphs on the card, eager on
-    the CPU.
+    is ``graphs.SimSolve``'s: on the card one launch of the sim kernel for
+    the quadruped on flat ground and replayed CUDA graphs for every other
+    model or terrain, eager on the CPU.
 
     ``live_plotter`` (``utils.live.LivePlotter``) receives each step's
     ``(t, q2, u, gamma)`` of every lane (B, ·) and plots lane 0 — the
@@ -238,10 +239,7 @@ def simulate(model: Model, env, horizon: int, h: float, q1, v1, policy=None,
     batch = q1.shape[0]
     q0 = q1 - h * v1.to(dtype)
 
-    def r_fn(z, th, kap):
-        return residual(model, env, z, th, kap)
-
-    solve = SimSolve(dims, r_fn, opts, cone=env.cone)
+    solve = SimSolve(model, env, opts)
     qa, qb = q0, q1
     pstate, dstate = policy_init(batch), dist_init(batch)
     gamma = q1.new_zeros((batch, dims.nc))

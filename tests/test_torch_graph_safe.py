@@ -179,7 +179,9 @@ def test_sim_solve_on_cpu_tensors_is_ip_solve(name):
     """On CPU tensors ``SimSolve`` is the eager ``ip_solve``: the same
     result bit for bit, and no graph."""
     dims, r_fn, z0, theta, cone = problem(name)
-    solve = SimSolve(dims, r_fn, ADAPTIVE, cone=cone)
+    model_name, env_name, _ = CASES[name]
+    solve = SimSolve(MODELS[model_name], pt.ENVIRONMENTS[env_name], ADAPTIVE)
+    assert solve.route(z0) == "eager"
     got = solve(z0, theta)
     want = ip_solve(dims, r_fn, z0, theta, ADAPTIVE, cone=cone)
     assert not solve.graph_sets

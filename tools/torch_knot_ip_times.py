@@ -45,17 +45,18 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (card, cuda_ms, knot_problems,  # noqa: E402
-                        phase_case)
+from chip_smoke import cuda_ms, knot_problems, phase_case  # noqa: E402
 from contactimplicitmpc_tpu_torch.control.linearized import \
     linearize_trajectory  # noqa: E402
 from contactimplicitmpc_tpu_torch.control.trajectory import \
     from_gait  # noqa: E402
+from contactimplicitmpc_tpu_torch.device import describe  # noqa: E402
 from contactimplicitmpc_tpu_torch.env import flat_2d_lc  # noqa: E402
 from contactimplicitmpc_tpu_torch.hotpath import HotPathConfig  # noqa: E402
 from contactimplicitmpc_tpu_torch.models.base import dims_of  # noqa: E402
 from contactimplicitmpc_tpu_torch.models.quadruped import \
     quadruped  # noqa: E402
+from contactimplicitmpc_tpu_torch.ops import cuda_build  # noqa: E402
 from contactimplicitmpc_tpu_torch.ops import knot_ip as knot_mod  # noqa: E402
 from contactimplicitmpc_tpu_torch.utils.gaits import load_gait  # noqa: E402
 
@@ -63,10 +64,10 @@ from contactimplicitmpc_tpu_torch.utils.gaits import load_gait  # noqa: E402
 def load_old(source):
     """The older kernel: built beside the new one, bound with the
     interface it had (13 pointers, 9 ints, 6 floats, the stream)."""
-    lib = os.path.join(knot_mod.BUILD_DIR, "knot_ip_old.so")
-    os.makedirs(knot_mod.BUILD_DIR, exist_ok=True)
-    subprocess.run([knot_mod._nvcc(), *knot_mod.NVCC_FLAGS, "-o", lib, source],
-                   check=True)
+    lib = os.path.join(cuda_build.BUILD_DIR, "knot_ip_old.so")
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib,
+                    source], check=True)
     fn = ctypes.CDLL(lib).knot_ip_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
@@ -126,7 +127,7 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
-    tag = f"[{card()}]"
+    tag = f"[{describe('cuda')}]"
     print(tag, flush=True)
     if args.model != "quadruped":
         return model_times(args, tag)

@@ -30,7 +30,8 @@ that wall, the kernels that ran, the kernels launched from the host
 (``cudaLaunchKernel``, ``cuLaunchKernel`` and their ``Ex`` forms, as the
 profiler records those calls) against the graph replays (``cudaGraphLaunch``) whose
 nodes ran the others, the knot kernel's launches (prologue and solve
-counted apart) and device time, the five kernels with the most device
+counted apart) and device time, the sim kernel's (``csrc/sim_ip.cu``, one
+a sim step of paths A and C), the five kernels with the most device
 time, the spans (seconds and entries by name) with their wall, and the
 two-period run's graph captures (``sim.graphs.stats``: sets, warm-up and
 capture seconds, pool bytes). The captures' seconds are taken out of each
@@ -177,6 +178,7 @@ def main():
         busy = sum(us for _, us in kernels.values()) * 1e-6
         knot = [v for k, v in kernels.items()
                 if re.search(r"knot_(ip|pack)(_wide)?_kernel", k)]
+        sim = [v for k, v in kernels.items() if "sim_ip_kernel" in k]
         top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
         (s1, w1), (s2, w2) = spanned(one), spanned(two)
         span_s = {k: [v[0] - s1.get(k, (0.0, 0))[0],
@@ -197,6 +199,8 @@ def main():
                               if calls else None),
             "knot_kernel_launches": sum(n for n, _ in knot),
             "knot_kernel_device_ms": sum(us for _, us in knot) * 1e-3,
+            "sim_kernel_launches": sum(n for n, _ in sim),
+            "sim_kernel_device_ms": sum(us for _, us in sim) * 1e-3,
             "top_kernels_ms": [[k[:120], us * 1e-3] for k, (_, us) in top],
             "spans_wall_s": w2 - w1, "spans_s_entries": span_s,
             "graph_captures_two_period_run": capture}),
