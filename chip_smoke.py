@@ -171,10 +171,14 @@ Phases (any failure raises and the script exits non-zero):
    on every problem and |Δz| ≤ 1e-8 on every converged one; in float32
    with the hot path's and phase L's, within the limits the test file sets
    from the spread of two correct float32 solves (``F32_LIMITS``,
-   tools/sim_ip_spread.py); then a sim step's time at 16 lanes and at 1
-   lane, kernel against graph replay (CUDA events), and the kernel's
-   bound (``ops/sim_ip.py::bound_ms``) from the trips the problems took,
-   at float32's rate (the tensors' type; the kernel computes in float64).
+   tools/sim_ip_spread.py); then the kernel's registers and spill bytes
+   a thread as ptxas reported them at the build, and a sim step's time at
+   16 lanes and at 1 lane, kernel against graph replay (CUDA events), the
+   time a trip (the step's time over the slowest problem's trips), and the
+   kernel's bound (``ops/sim_ip.py::bound_ms``) from the trips the
+   problems took, at float32's rate (the tensors' type; the kernel
+   computes in float64), with the Jacobian counted in its closed form and,
+   beside it for comparison, as the earlier warp kernel's dual numbers.
 
 Every sim step of paths A, C and L is one launch of the sim kernel, and
 every sim step of every other path a replay of the sim solve's CUDA
@@ -246,6 +250,7 @@ from contactimplicitmpc_tpu_torch.models.quadruped import quadruped
 from contactimplicitmpc_tpu_torch.ops import knot_ip as knot_mod
 from contactimplicitmpc_tpu_torch.ops.fixed_ip import linearized_ip_fixed
 from contactimplicitmpc_tpu_torch.ops.knot_ip import knot_ip
+from contactimplicitmpc_tpu_torch.ops import cuda_build
 from contactimplicitmpc_tpu_torch.ops import sim_ip as sim_mod
 from contactimplicitmpc_tpu_torch.parallel import (distributed, make_mesh,
                                                    make_sharded_mpc_rollouts,
@@ -1606,6 +1611,10 @@ def sim_kernel_phase(dev, tag):
               f"converged {int(got.converged.sum())} / "
               f"{int(want.converged.sum())} {tag}", flush=True)
         sim_tests.check_f32(got, want)
+    for r in cuda_build.resources(sim_mod.build()):
+        print(f"phase S: ptxas, {r['kernel']}: {r.get('registers')} "
+              f"registers, {r['spill_stores']} bytes of spill stores, "
+              f"{r['spill_loads']} of spill loads a thread {tag}", flush=True)
     times = {}
     for lanes, name in ((16, "hot_path"), (1, "hot_path"), (1, "phase_L")):
         opts = sim_tests.OPTIONS[name]
@@ -1613,16 +1622,24 @@ def sim_kernel_phase(dev, tag):
         solve = SimSolve(quadruped, flat_2d_lc, opts)
         kernel = cuda_ms(lambda: solve(z0, theta), 20, spin=True)
         plain = cuda_ms(lambda: solve._graphed(z0, theta), 5)
-        trips = int(solve(z0, theta).iterations.sum())
+        iters = solve(z0, theta).iterations
+        trips, slowest = int(iters.sum()), int(iters.max())
         bound, by = sim_mod.bound_ms(lanes, trips, opts, 4)
+        dual, _ = sim_mod.bound_ms(lanes, trips, opts, 4, jacobian="dual")
         times[lanes, name] = (kernel, plain, bound, by)
         print(f"phase S: a sim step of {lanes} lane(s), float32, {name} "
-              f"options ({trips} trips in all): kernel {kernel:.4f} ms, "
-              f"graph replay {plain:.4f} ms, bound {bound:.6f} ms "
-              f"({by}), {bound / kernel:.2%} of it {tag}", flush=True)
+              f"options ({trips} trips in all, the slowest problem "
+              f"{slowest}): kernel {kernel:.4f} ms, "
+              f"{1e3 * kernel / slowest:.2f} us a trip, graph replay "
+              f"{plain:.4f} ms, bound {bound:.7f} ms "
+              f"({by}), {bound / kernel:.3%} of it (the dual-number "
+              f"Jacobian's count: {dual:.7f} ms, {dual / kernel:.3%}) {tag}",
+              flush=True)
         print(json.dumps({"sim_ip_bound": {
-            "lanes": lanes, "options": name, "trips": trips, "ms": kernel,
-            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "lanes": lanes, "options": name, "trips": trips,
+            "slowest_trips": slowest, "ms": kernel,
+            "us_a_trip": 1e3 * kernel / slowest, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "bound_ms_dual_count": dual,
             "card": tag[1:-1]}}), flush=True)
     kernel, plain, bound, by = times[16, "hot_path"]
     return {"max_abs_err": err, "ms": kernel, "plain_ms": plain,

@@ -1,6 +1,6 @@
-// The quadruped's sim step on NVIDIA Hopper (sm_90a): its residual for the
-// warp interior-point solve of sim_ip.cuh, and the entry point that
-// ops/sim_ip.py loads.
+// The quadruped's sim step on NVIDIA Hopper (sm_90a): its residual and
+// Jacobian for the block interior-point solve of sim_ip.cuh, and the entry
+// point that ops/sim_ip.py loads.
 //
 // The model is models/quadruped.py::Quadruped on env.flat_2d_lc (linearized
 // cone: nz 43, ntheta 34, nx 11, ny 16); its constants arrive packed
@@ -14,8 +14,25 @@
 // M(q) v and the bias are sums over the nine bodies of J_b^T(m_b ...)
 // without forming M. The midpoint-1 terms, B^T u and A^T w depend on theta
 // alone and are formed once a solve (theta_terms). The lever-arm table is
-// sparse (a body or foot hangs on at most three angles): the loops skip its
-// zeros, a branch the whole warp takes alike.
+// sparse (a body or foot hangs on at most three angles): the loops run over
+// its nonzeros, listed in the packed table.
+//
+// A point's residual in three stages between barriers, the work of each
+// split over a group's threads: the eighteen sines and cosines (the nine
+// angles at the second midpoint and at q2), a thread an angle; the nine
+// bodies' forces (fx, fz) = m_b (sgn J_b v - h/2 (Jdot_b v + g e_z)); the
+// 27 equality rows, a thread a row, each a sum over the bodies and feet.
+//
+// The Jacobian in (x, y1), written out (tests/test_torch_sim_ip.py's
+// packed_jacobian mirrors it), in two stages across the block, from the
+// sines, cosines and forces the iterate's residual left: for each body b
+// and column k of q2, the derivative (dfx, dfz) of its force (through the
+// velocity v = (q2 - q1)/h and the midpoint angle (q1 + q2)/2); then the
+// 27 x 27 entries, a thread an entry: a dynamics row over q2 sums the bodies'
+// derivatives through the lever arms, plus on the diagonal the angle's own
+// term (the midpoint angle's rotation of the forces, the inertia, the joint
+// damping and the feet's forces turned at q2); the rest are the contact
+// Jacobian at q2, the feet's velocity rows and the friction cone's constants.
 //
 // Arithmetic: float64 for float32 and float64 tensors alike, the outputs
 // rounded to the tensors' type. A float32 solve stalls where the float64
@@ -33,7 +50,6 @@
 
 namespace {
 
-using sim_ip::Dual;
 using sim_ip::sin_cos;
 
 // The quadruped on flat_2d_lc.
@@ -42,6 +58,7 @@ constexpr int NY = 2 * NC + NB;
 constexpr int NT = 2 * NQ + NU + NW + 2;
 constexpr int NA = NQ - 2;          // absolute angles
 constexpr int NBODY = 9, NPOINT = 13;
+constexpr int NE = NQ + NY;
 
 // z = [q2; gamma1; b1; psi1; s1; eta1; s2], theta = [q0; q1; u1; w1; mu; h]
 constexpr int Z_G = NQ, Z_B = Z_G + NC, Z_P = Z_B + NB, Z_S1 = Z_P + NC;
@@ -51,139 +68,290 @@ constexpr int T_MU = T_W + NW, T_H = T_MU + 1;
 
 // The packed model (ops/sim_ip.py::pack_quadruped): lever arms (13 x 9:
 // torso, (thigh, calf) x 4, feet 1-4), masses (9), inertias (9), joint
-// friction (11), B (8 x 11), A (2 x 11), g.
+// friction (11), B (8 x 11), A (2 x 11), g, and the lever arms' nonzeros as
+// lists (a count, then (index, arm) pairs in ascending index): each point's
+// angles, each angle's bodies, each angle's feet.
+constexpr int kPointAngles = 3, kAngleBodies = 5, kAngleFeet = 2;
 constexpr int P_ARMS = 0, P_MASS = P_ARMS + NPOINT * NA, P_INERTIA = P_MASS + NBODY;
 constexpr int P_JF = P_INERTIA + NBODY, P_B = P_JF + NQ, P_A = P_B + NU * NQ;
-constexpr int P_G = P_A + NW * NQ;
-constexpr int kPackSize = P_G + 1;
+constexpr int P_G = P_A + NW * NQ, P_PA = P_G + 1;
+constexpr int P_AB = P_PA + NPOINT * (1 + 2 * kPointAngles);
+constexpr int P_AF = P_AB + NA * (1 + 2 * kAngleBodies);
+constexpr int kPackSize = P_AF + NA * (1 + 2 * kAngleFeet);
 static_assert(NQ + 2 * NY == 43 && NT == 34, "the quadruped's dimensions");
 
-// Midpoint terms of one Euler-Lagrange half: sum_b J_b^T m_b (sgn J_b v -
-// h/2 (Jdot_b v + g e_z)) + sgn I v over the nine bodies, into acc; q is
-// the midpoint configuration (its angles given as sin/cos), v the velocity.
-// With sgn = +1 it is h/2 D1L + D2L at (q_m1, v_m1), with -1 it is
-// h/2 D1L - D2L at (q_m2, v_m2) (models/base.py::dynamics, D1L = -bias,
-// D2L = M v).
-template <class T, class S, class V>
-__device__ __forceinline__ void midpoint_terms(const S* pk, const T (&sn)[NA],
-                                               const T (&cs)[NA], const V& v,
-                                               S sgn, S hh, T (&acc)[NQ]) {
-  const S g = pk[P_G];
-#pragma unroll
-  for (int b = 0; b < NBODY; ++b) {
-    T jvx = v(0), jvz = v(1), jdx = T(S(0)), jdz = T(S(0));
-#pragma unroll
-    for (int j = 0; j < NA; ++j) {
-      const S a = pk[P_ARMS + NA * b + j];
-      if (a == S(0)) continue;
-      const T av = a * v(2 + j);
-      jvx += av * cs[j];
-      jvz += av * sn[j];
-      const T w = av * v(2 + j);
-      jdx -= w * sn[j];
-      jdz += w * cs[j];
-    }
-    const S m = pk[P_MASS + b];
-    const T fx = m * (sgn * jvx - hh * jdx);
-    const T fz = m * (sgn * jvz - hh * (jdz + T(g)));
-    acc[0] += fx;
-    acc[1] += fz;
-#pragma unroll
-    for (int j = 0; j < NA; ++j) {
-      const S a = pk[P_ARMS + NA * b + j];
-      if (a == S(0)) continue;
-      acc[2 + j] += a * (cs[j] * fx + sn[j] * fz);
-    }
+// A point's scratch: the sines and cosines of the nine angles at the second
+// midpoint and at q2, then the nine bodies' forces.
+constexpr int E_SN = 0, E_CS = NA, E_SN2 = 2 * NA, E_CS2 = 3 * NA, E_FX = 4 * NA,
+              E_FZ = E_FX + NBODY, kEvalScratch = E_FZ + NBODY;
+// The Jacobian's scratch: each body's force derivative (dfx, dfz) along each
+// column of q2 (the iterate's trigonometry and forces are its residual's).
+constexpr int J_D = 0, kJacScratch = J_D + 2 * NBODY * NQ;
+
+__device__ __forceinline__ int arm(int point, int j) { return P_ARMS + NA * point + j; }
+
+// f(index, arm) over a list of the packed table's lever-arm nonzeros
+template <class S, class F>
+__device__ __forceinline__ void each(const S* list, F f) {
+  const int n = int(list[0]);
+#pragma unroll 1
+  for (int e = 0; e < n; ++e) f(int(list[1 + 2 * e]), list[2 + 2 * e]);
+}
+template <class S>
+__device__ __forceinline__ const S* point_angles(const S* pk, int p) {
+  return pk + P_PA + (1 + 2 * kPointAngles) * p;
+}
+template <class S>
+__device__ __forceinline__ const S* angle_bodies(const S* pk, int j) {
+  return pk + P_AB + (1 + 2 * kAngleBodies) * j;
+}
+template <class S>
+__device__ __forceinline__ const S* angle_feet(const S* pk, int j) {
+  return pk + P_AF + (1 + 2 * kAngleFeet) * j;
+}
+
+// One body's force at a midpoint: m_b (sgn J_b v - h/2 (Jdot_b v + g e_z)),
+// the midpoint's angles as sines and cosines, v(k) the velocity.
+template <class S, class V>
+__device__ __forceinline__ void body_force(const S* pk, int b, const S* sn, const S* cs,
+                                           const V& v, S sgn, S hh, S& fx, S& fz) {
+  S jvx = v(0), jvz = v(1), jdx = S(0), jdz = S(0);
+  each(point_angles(pk, b), [&](int j, S a) {
+    const S av = a * v(2 + j);
+    jvx += av * cs[j];
+    jvz += av * sn[j];
+    const S w = av * v(2 + j);
+    jdx -= w * sn[j];
+    jdz += w * cs[j];
+  });
+  const S m = pk[P_MASS + b];
+  fx = m * (sgn * jvx - hh * jdx);
+  fz = m * (sgn * jvz - hh * (jdz + pk[P_G]));
+}
+
+// sum_b J_b^T (fx_b, fz_b) in row k of the dynamics (k >= 2: angle k - 2).
+template <class S>
+__device__ __forceinline__ S body_sum(const S* pk, int k, const S* sn, const S* cs,
+                                      const S* fx, const S* fz) {
+  S acc = S(0);
+  if (k < 2) {
+    const S* f = k == 0 ? fx : fz;
+#pragma unroll 1
+    for (int b = 0; b < NBODY; ++b) acc += f[b];
+    return acc;
   }
-#pragma unroll
-  for (int j = 0; j < NA; ++j) acc[2 + j] += (sgn * pk[P_INERTIA + j]) * v(2 + j);
+  const int j = k - 2;
+  each(angle_bodies(pk, j), [&](int b, S a) { acc += a * (cs[j] * fx[b] + sn[j] * fz[b]); });
+  return acc;
 }
 
 struct QuadrupedFlat {
-  static constexpr int NQ = ::NQ, NX = ::NQ, NY = ::NY, NT = ::NT, NCST = ::NQ;
+  static constexpr int NQ = ::NQ, NX = ::NQ, NY = ::NY, NT = ::NT, NCST = ::NQ + 1;
   static constexpr int kPackSize = ::kPackSize;
+  static constexpr int kEvalScratch = ::kEvalScratch, kJacScratch = ::kJacScratch;
 
   // The terms of the dynamics rows that depend on theta alone: h/2 D1L + D2L
-  // at the first midpoint, B^T u and A^T w.
+  // at the first midpoint, B^T u and A^T w; then 1 / h.
   template <class S>
-  __device__ static void theta_terms(const S* pk, const S* th, S (&acc)[NQ]) {
+  __device__ static void theta_terms(const S* pk, const S* th, S* cst, S* scr, int t) {
     const S h = th[T_H], hh = S(0.5) * h;
-    S sn[NA], cs[NA];
-#pragma unroll
-    for (int j = 0; j < NA; ++j)
-      sin_cos(S(0.5) * (th[T_Q0 + 2 + j] + th[T_Q1 + 2 + j]), sn[j], cs[j]);
-#pragma unroll
-    for (int k = 0; k < NQ; ++k) acc[k] = S(0);
     auto v = [&](int k) { return (th[T_Q1 + k] - th[T_Q0 + k]) / h; };
-    midpoint_terms<S, S>(pk, sn, cs, v, S(1), hh, acc);
-#pragma unroll
-    for (int k = 0; k < NQ; ++k) {
+    if (t < NA)
+      sin_cos(S(0.5) * (th[T_Q0 + 2 + t] + th[T_Q1 + 2 + t]), scr[E_SN + t], scr[E_CS + t]);
+    __syncthreads();
+    if (t < NBODY)
+      body_force(pk, t, scr + E_SN, scr + E_CS, v, S(1), hh, scr[E_FX + t], scr[E_FZ + t]);
+    __syncthreads();
+    if (t < NQ) {
+      S acc = body_sum(pk, t, scr + E_SN, scr + E_CS, scr + E_FX, scr + E_FZ);
+      if (t >= 2) acc += pk[P_INERTIA + t - 2] * v(t);
       S bu = S(0), aw = S(0);
-      for (int r = 0; r < NU; ++r) bu += pk[P_B + NQ * r + k] * th[T_U + r];
-      for (int r = 0; r < NW; ++r) aw += pk[P_A + NQ * r + k] * th[T_W + r];
-      acc[k] = (acc[k] + bu) + aw;
+      for (int r = 0; r < NU; ++r) bu += pk[P_B + NQ * r + t] * th[T_U + r];
+      for (int r = 0; r < NW; ++r) aw += pk[P_A + NQ * r + t] * th[T_W + r];
+      cst[t] = (acc + bu) + aw;
     }
+    if (t == NQ) cst[NQ] = S(1) / h;
   }
 
-  // The equality rows of r(z, theta, .) (dynamics, impact, maximum
-  // dissipation, friction cone), each handed to put(row, value) in order;
-  // zf(i) gives z_i as a T, cst the theta terms of the dynamics.
-  template <class T, class S, class Z, class Put>
-  __device__ static __forceinline__ void equality_rows(const S* pk, const S* th, const S* cst,
-                                                       const Z& zf, Put put) {
-    const S h = th[T_H], hh = S(0.5) * h, mu = th[T_MU];
-    T acc[NQ];
-#pragma unroll
-    for (int k = 0; k < NQ; ++k) acc[k] = T(cst[k]);
-    auto vm = [&](int k) { return (zf(k) - T(th[T_Q1 + k])) / h; };
-    {
-      T sn[NA], cs[NA];
-#pragma unroll
-      for (int j = 0; j < NA; ++j) sin_cos(S(0.5) * (T(th[T_Q1 + 2 + j]) + zf(2 + j)), sn[j], cs[j]);
-      midpoint_terms<T, S>(pk, sn, cs, vm, S(-1), hh, acc);
+  // The equality rows of r(z, theta, .) at the point zf (dynamics, impact,
+  // maximum dissipation, friction cone) into out, split over a group's G
+  // threads (this thread g; g >= G idle: it writes nothing and only takes
+  // part in the barriers); cst holds theta_terms. Returns the sum of the
+  // squares of this thread's rows.
+  template <class S, class Z>
+  __device__ static S rows(const S* pk, const S* th, const S* cst, const Z& zf, S* scr,
+                           S* out, int g, int G) {
+    const S h = th[T_H], hh = S(0.5) * h, mu = th[T_MU], ih = cst[NQ];
+    auto vm = [&](int k) { return (zf(k) - th[T_Q1 + k]) * ih; };
+    const bool idle = g >= G;   // no rows: only the barriers
+    for (int k = g; !idle && k < 2 * NA; k += G) {
+      if (k < NA)
+        sin_cos(S(0.5) * (th[T_Q1 + 2 + k] + zf(2 + k)), scr[E_SN + k], scr[E_CS + k]);
+      else
+        sin_cos(zf(2 + k - NA), scr[E_SN2 + k - NA], scr[E_CS2 + k - NA]);
     }
-#pragma unroll
-    for (int k = 0; k < NQ; ++k) acc[k] -= (h * pk[P_JF + k]) * vm(k);
-
-    // J(q2)^T lambda, the feet's heights and tangential velocities
-    T phi[NC], vt[NC];
-    {
-      T sn[NA], cs[NA];
-#pragma unroll
-      for (int j = 0; j < NA; ++j) sin_cos(zf(2 + j), sn[j], cs[j]);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int f = NBODY + c;
-        const T lx = zf(Z_B + 2 * c) - zf(Z_B + 2 * c + 1), lz = zf(Z_G + c);
-        acc[0] += lx;
-        acc[1] += lz;
-        T fz = zf(1), vx = zf(0) - T(th[T_Q1]);
-#pragma unroll
-        for (int j = 0; j < NA; ++j) {
-          const S a = pk[P_ARMS + NA * f + j];
-          if (a == S(0)) continue;
-          acc[2 + j] += a * (cs[j] * lx + sn[j] * lz);
-          fz -= a * cs[j];
-          vx += (a * cs[j]) * (zf(2 + j) - T(th[T_Q1 + 2 + j]));
+    __syncthreads();
+    for (int b = g; !idle && b < NBODY; b += G)
+      body_force(pk, b, scr + E_SN, scr + E_CS, vm, S(-1), hh, scr[E_FX + b], scr[E_FZ + b]);
+    __syncthreads();
+    const S* sn2 = scr + E_SN2;
+    const S* cs2 = scr + E_CS2;
+    S squares = S(0);
+    for (int i = g; !idle && i < NE; i += G) {
+      S row;
+      if (i < NQ) {
+        // the dynamics: theta's terms, the second midpoint's, the joint
+        // damping, J(q2)^T lambda
+        S acc = cst[i] + body_sum(pk, i, scr + E_SN, scr + E_CS, scr + E_FX, scr + E_FZ);
+        if (i >= 2) acc += (S(-1) * pk[P_INERTIA + i - 2]) * vm(i);
+        acc -= (h * pk[P_JF + i]) * vm(i);
+        if (i < 2) {
+#pragma unroll 1
+          for (int c = 0; c < NC; ++c)
+            acc += i == 0 ? zf(Z_B + 2 * c) - zf(Z_B + 2 * c + 1) : zf(Z_G + c);
+        } else {
+          const int j = i - 2;
+          each(angle_feet(pk, j), [&](int c, S a) {
+            const S lx = zf(Z_B + 2 * c) - zf(Z_B + 2 * c + 1), lz = zf(Z_G + c);
+            acc += a * (cs2[j] * lx + sn2[j] * lz);
+          });
         }
-        phi[c] = fz;
-        vt[c] = vx / h;
+        row = acc;
+      } else if (i < NQ + NC) {
+        // impact: s1 - phi, the foot's height
+        const int c = i - NQ;
+        S phi = zf(1);
+        each(point_angles(pk, NBODY + c), [&](int j, S a) { phi -= a * cs2[j]; });
+        row = zf(Z_S1 + c) - phi;
+      } else if (i < NQ + NC + NB) {
+        // maximum dissipation: eta -+ vt - psi, vt the foot's tangential
+        // velocity
+        const int m = i - NQ - NC, c = m >> 1;
+        S vx = zf(0) - th[T_Q1];
+        each(point_angles(pk, NBODY + c),
+             [&](int j, S a) { vx += (a * cs2[j]) * (zf(2 + j) - th[T_Q1 + 2 + j]); });
+        const S vt = vx * ih, p = zf(Z_P + c);
+        row = (m & 1) ? (zf(Z_ETA + m) + vt) - p : (zf(Z_ETA + m) - vt) - p;
+      } else {
+        // friction cone
+        const int c = i - NQ - NC - NB;
+        row = zf(Z_S2 + c) - (mu * zf(Z_G + c) - (zf(Z_B + 2 * c) + zf(Z_B + 2 * c + 1)));
       }
+      out[i] = row;
+      squares = sim_ip::sq_add(squares, row);
     }
-#pragma unroll
-    for (int k = 0; k < NQ; ++k) put(k, acc[k]);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) put(NQ + c, zf(Z_S1 + c) - phi[c]);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const T p = zf(Z_P + c);
-      put(NQ + NC + 2 * c, (zf(Z_ETA + 2 * c) - vt[c]) - p);
-      put(NQ + NC + 2 * c + 1, (zf(Z_ETA + 2 * c + 1) + vt[c]) - p);
+    return squares;
+  }
+
+  // The Jacobian of the equality rows in (x, y1) = z[0 .. NE) at z into jac
+  // (row stride ldj), written out (the file's header); ev is the scratch
+  // rows left at z (its sines, cosines and forces).
+  template <class S>
+  __device__ static void jacobian(const S* pk, const S* th, const S* cst, const S* z,
+                                  const S* ev, S* scr, S* jac, int ldj, int t) {
+    const S hh = S(0.5) * th[T_H], mu = th[T_MU], ih = cst[NQ];
+    auto vm = [&](int k) { return (z[k] - th[T_Q1 + k]) * ih; };
+    const S* sn = ev + E_SN;
+    const S* cs = ev + E_CS;
+    const S* sn2 = ev + E_SN2;
+    const S* cs2 = ev + E_CS2;
+    S* dfx = scr + J_D;                 // [b][k]
+    S* dfz = scr + J_D + NBODY * NQ;
+    if (t < NBODY * NQ) {
+      const int b = t / NQ, k = t % NQ;
+      const S m = pk[P_MASS + b];
+      S dx = S(0), dz = S(0);
+      if (k < 2) {
+        // v_k = (q2_k - q1_k) / h moves J_b v by 1/h along x or z
+        (k == 0 ? dx : dz) = -m * ih;
+      } else {
+        const int i = k - 2;
+        const S a = pk[arm(b, i)];
+        if (a != S(0)) {
+          // v_i moves by 1/h, the midpoint angle by 1/2
+          const S vi = vm(k), c = cs[i], s = sn[i];
+          const S djvx = a * (c * ih - S(0.5) * vi * s);
+          const S djvz = a * (s * ih + S(0.5) * vi * c);
+          const S djdx = -a * (S(2) * vi * s * ih + S(0.5) * vi * vi * c);
+          const S djdz = a * (S(2) * vi * c * ih - S(0.5) * vi * vi * s);
+          dx = m * (-djvx - hh * djdx);
+          dz = m * (-djvz - hh * djdz);
+        }
+      }
+      dfx[NQ * b + k] = dx;
+      dfz[NQ * b + k] = dz;
     }
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      put(NQ + NC + NB + c,
-          zf(Z_S2 + c) - (mu * zf(Z_G + c) - (zf(Z_B + 2 * c) + zf(Z_B + 2 * c + 1))));
+    __syncthreads();
+    const S* fx = ev + E_FX;
+    const S* fz = ev + E_FZ;
+#pragma unroll 1
+    for (int e = t; e < NE * NE; e += sim_ip::kThreads) {
+      const int i = e / NE, k = e % NE;
+      S v = S(0);
+      if (i < NQ) {
+        if (k < NQ) {
+          // the dynamics along q2: sum_b J_b^T d(fx_b, fz_b), and on the
+          // diagonal the angle's own terms
+          if (i < 2) {
+            const S* d = i == 0 ? dfx : dfz;
+#pragma unroll 1
+            for (int b = 0; b < NBODY; ++b) v += d[NQ * b + k];
+          } else {
+            const int j = i - 2;
+            each(angle_bodies(pk, j), [&](int b, S a) {
+              v += a * (cs[j] * dfx[NQ * b + k] + sn[j] * dfz[NQ * b + k]);
+            });
+          }
+          if (k == i) {
+            v -= pk[P_JF + i];
+            if (i >= 2) {
+              const int j = i - 2;
+              S rot = S(0);
+              each(angle_bodies(pk, j),
+                   [&](int b, S a) { rot += a * (cs[j] * fz[b] - sn[j] * fx[b]); });
+              v += S(0.5) * rot - pk[P_INERTIA + j] * ih;
+              each(angle_feet(pk, j), [&](int c, S a) {
+                const S lx = z[Z_B + 2 * c] - z[Z_B + 2 * c + 1], lz = z[Z_G + c];
+                v += a * (cs2[j] * lz - sn2[j] * lx);
+              });
+            }
+          }
+        } else if (k < Z_B) {
+          // lambda_z = gamma_c
+          const int c = k - Z_G;
+          v = i == 1 ? S(1) : (i >= 2 ? pk[arm(NBODY + c, i - 2)] * sn2[i - 2] : S(0));
+        } else if (k < Z_P) {
+          // lambda_x = b_2c - b_2c+1
+          const int c = (k - Z_B) >> 1;
+          const S sg = ((k - Z_B) & 1) ? S(-1) : S(1);
+          v = i == 0 ? sg : (i >= 2 ? sg * (pk[arm(NBODY + c, i - 2)] * cs2[i - 2]) : S(0));
+        }
+      } else if (i < NQ + NC) {
+        // impact: -d phi
+        const int c = i - NQ;
+        if (k == 1) v = S(-1);
+        else if (k >= 2 && k < NQ) v = -(pk[arm(NBODY + c, k - 2)] * sn2[k - 2]);
+      } else if (i < NQ + NC + NB) {
+        // maximum dissipation: -+ d vt, -1 along psi
+        const int m = i - NQ - NC, c = m >> 1;
+        const S sg = (m & 1) ? S(1) : S(-1);
+        if (k == 0) {
+          v = sg * ih;
+        } else if (k >= 2 && k < NQ) {
+          const int j = k - 2;
+          const S a = pk[arm(NBODY + c, j)];
+          if (a != S(0)) v = sg * (a * (cs2[j] - sn2[j] * (z[k] - th[T_Q1 + k]))) * ih;
+        } else if (k == Z_P + c) {
+          v = S(-1);
+        }
+      } else {
+        // friction cone
+        const int c = i - NQ - NC - NB;
+        if (k == Z_G + c) v = -mu;
+        else if (k == Z_B + 2 * c || k == Z_B + 2 * c + 1) v = S(1);
+      }
+      jac[ldj * i + k] = v;
+    }
   }
 };
 

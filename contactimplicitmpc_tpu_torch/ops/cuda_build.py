@@ -5,13 +5,16 @@ A library is compiled at first use from the repository's source into
 ``build/`` (listed in ``.gitignore``), named by the hash of the source, the
 headers it includes and the flags, and reused while they stay the same.
 Building needs the CUDA toolkit: ``nvcc`` on the path, or under
-``$CUDA_HOME`` or ``/usr/local/cuda``.
+``$CUDA_HOME`` or ``/usr/local/cuda``. What ``-Xptxas -v`` says of each
+kernel is kept beside the library (``<library>.ptxas``); ``resources``
+reads it.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -61,5 +64,40 @@ def build(source: str, verbose: bool = False, deps=(), defines=()) -> str:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     if verbose:
         print(proc.stderr, end="")
+    with open(lib + ".ptxas", "w") as f:
+        f.write(proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def resources(lib: str) -> list:
+    """Each kernel of the library at ``lib`` as ``-Xptxas -v`` reported it
+    when it was built: ``{"kernel", "registers", "spill_stores",
+    "spill_loads", "stack"}`` (bytes but the registers), in the report's
+    order; empty where no report was kept."""
+    try:
+        with open(lib + ".ptxas") as f:
+            text = f.read()
+    except FileNotFoundError:
+        return []
+    out, name, props = [], None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name and props == name:
+            out.append({"kernel": name, "stack": int(m.group(1)),
+                        "spill_stores": int(m.group(2)),
+                        "spill_loads": int(m.group(3))})
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out and out[-1]["kernel"] == name and "registers" not in out[-1]:
+            out[-1]["registers"] = int(m.group(1))
+    return out

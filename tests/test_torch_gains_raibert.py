@@ -9,7 +9,7 @@ package, float64 on the CPU on seeded numpy inputs:
   seeded observations that take both phases, to 1e-12;
 * ``simulate`` with ``raibert_policy`` (2D hopper, tests/test_raibert.py's
   options, 50 steps) and with ``raibert_policy_3d`` (3D hopper,
-  tests/test_raibert_3d.py's options without restarts, 30 steps) against
+  tests/test_raibert_3d.py's options without restarts, 15 steps) against
   JAX: q, u and the impulses to 1e-8, flags and iteration counts exactly.
 """
 
@@ -210,10 +210,11 @@ def test_simulate_raibert_2d():
 def test_simulate_raibert_3d():
     """The 3D hopper under ``raibert_policy_3d`` (tests/test_raibert_3d.py:
     h_sim 0.002, v0 (0, 0.2), its options but for its two cold restarts)
-    for 30 steps of its fall. Every step of the fall converges on the first
-    pass; a restart pass would reset every count to 0, so the iteration
-    counts are compared without one."""
-    h, steps = 0.002, 30
+    for 15 steps of its fall (in flight: the foot starts 0.5 above the
+    ground, some 160 steps of fall). Every step of the fall converges on the first pass; a restart
+    pass would reset every count to 0, so the iteration counts are compared
+    without one."""
+    h, steps = 0.002, 15
     kw = dict(r_tol=1e-8, kappa_tol=1e-8, max_iter=150,
               undercut=float("inf"), max_ls=25)
     q1 = np.array([0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.5])

@@ -237,12 +237,13 @@ def test_assembler_matches(hopper_ref, mode):
     np.testing.assert_allclose(got_r[0].numpy(), want_r, rtol=0, atol=1e-9)
 
 
-def _force_solve(dtype):
+def _force_solve(dtype, jax_solve=True):
     """tests/test_newton_f32_force.py's solve in both packages: the 2D hopper,
     H = 10, configuration-force mode with the reference's 1e-100 γ/b weights
     (0 in float32), the shipped "ldl" KKT solver (which both packages leave
     for a pivoted LU in float32 force mode), one lane from the in-place
-    gait moved by (0, 0.03, 0.01, 0). Every input is JAX's, in ``dtype``."""
+    gait moved by (0, 0.03, 0.01, 0). Every input is JAX's, in ``dtype``;
+    without ``jax_solve`` the JAX package's solve is not run (None)."""
     env, h, mode = ci.flat_2d_lc, H_MPC, CONFIGURATION_FORCE
     jd = ci.dims_of(jhopper, env)
     jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
@@ -263,7 +264,8 @@ def _force_solve(dtype):
     n_opts = JNewtonOptions(r_tol=3e-4, max_iter=8, kkt_solver="ldl")
     want = jax.jit(lambda: jnewton(
         jd, mode, JNewtonAssembler(jd, h, mode), obj, lin, window, window,
-        nu0, q0, q1, jnp.zeros((jd.nc,), jdt), ip_opts, n_opts))()
+        nu0, q0, q1, jnp.zeros((jd.nc,), jdt), ip_opts,
+        n_opts))() if jax_solve else None
 
     dims = pt.Dims(nq=jd.nq, nu=jd.nu, nw=jd.nw, nc=jd.nc, nf=jd.nf, ne=jd.ne)
     conv = dict(dtype=dtype, device="cpu")
@@ -293,7 +295,7 @@ def test_hopper_newton_f32_force_mode():
     within 0.2 of the float64 solve, the per-row residual under 2 r_tol;
     and within ``F32_FORCE_U_TOL`` of JAX's float32 solve."""
     got32, want32, n_total = _force_solve(torch.float32)
-    got64, _, _ = _force_solve(torch.float64)
+    got64, _, _ = _force_solve(torch.float64, jax_solve=False)
     assert got32.traj.u.dtype == torch.float32
     assert bool(torch.isfinite(got32.traj.u).all())
     assert np.isfinite(float(got32.r_norm[0]))

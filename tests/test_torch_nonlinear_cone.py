@@ -10,11 +10,12 @@ package, float64 on the CPU on seeded numpy inputs:
   keyword of ``residual``;
 * ``z_initialize``, ``z_warmstart`` and ``pack_z_consistent`` for both
   cones, to 1e-12;
-* ``simulate`` for the runs of tests/test_nonlinear_cone.py: the 3D drop
-  and the 3D slide at v = (1, 2, 0) as two lanes of 150 steps (the JAX
-  test drops for 100), and the 2D drop for 100 steps; q, z and the
-  impulses to 1e-8, flags and iteration counts exactly, and that file's own
-  checks (at rest to 1e-6, the slide's x:y = 1:2 to 1e-3).
+* ``simulate`` for the runs of tests/test_nonlinear_cone.py cut to 70
+  steps (that file runs 100 and 150; every run lands at step 45 and rests
+  from step 46): the 3D drop and the 3D slide at v = (1, 2, 0) as two
+  lanes, and the 2D drop; q, z and the impulses to 1e-8, flags and
+  iteration counts exactly, and that file's own checks (at rest to 1e-6,
+  the slide's x:y = 1:2 to 1e-3).
 """
 
 import jax
@@ -229,10 +230,11 @@ def _compare(got, want, lane=0):
 
 def test_particle_3d_drop_and_slide():
     """The 3D particle dropped at rest and thrown at v = (1, 2, 0) from
-    height 1 onto flat_3d_nc, two lanes of 150 steps of 0.01 against the
+    height 1 onto flat_3d_nc, two lanes of 70 steps of 0.01 against the
     JAX package's runs with its default options; both come to rest on the
-    ground, and the isotropic cone keeps the slide's direction."""
-    steps, h = 150, 0.01
+    ground (from step 46), and the isotropic cone keeps the slide's
+    direction."""
+    steps, h = 70, 0.01
     v1 = np.array([[0.0, 0.0, 0.0], [1.0, 2.0, 0.0]])
     q1 = np.array([[0.0, 0.0, 1.0]] * 2)
     run = jax.jit(lambda q, v: ci.simulate(jmodels.particle, ci.flat_3d_nc,
@@ -251,13 +253,14 @@ def test_particle_3d_drop_and_slide():
 
 
 def test_particle_2d_drop():
-    """The 2D particle dropped at rest from height 1 onto flat_2d_nc, 100
-    steps, against the JAX package's run; at rest on the ground."""
+    """The 2D particle dropped at rest from height 1 onto flat_2d_nc, 70
+    steps, against the JAX package's run; at rest on the ground (from step
+    46)."""
     q1, v1 = np.array([0.0, 1.0]), np.zeros(2)
     want = jax.jit(lambda: ci.simulate(jmodels.particle_2d, ci.flat_2d_nc,
-                                       100, 0.01, jnp.asarray(q1),
+                                       70, 0.01, jnp.asarray(q1),
                                        jnp.asarray(v1)))()
-    got = pt.simulate(tmodels.particle_2d, pt.flat_2d_nc, 100, 0.01,
+    got = pt.simulate(tmodels.particle_2d, pt.flat_2d_nc, 70, 0.01,
                       t(q1[None]), t(v1[None]))
     assert bool(pt.status(got).all()) and bool(ci.status(want))
     _compare(got, want)

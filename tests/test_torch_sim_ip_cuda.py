@@ -17,9 +17,10 @@ float32 (``record_states``; chip_smoke.py's phase S takes them from here).
   (tools/sim_ip_spread.py; PERF.md records the measured spread);
 - a θ poisoned with NaN in one problem stays in that problem;
 - ``quadruped_payload``; adaptive solves with cold restarts (``retries``)
-  and refinement; a model or terrain the kernel does not take goes
-  through the graphs; a bad input raises before any launch; ``simulate``
-  and ``mpc_rollout`` launch the kernel once a sim step;
+  and refinement; the largest max_ls and 1024 problems; a model or
+  terrain the kernel does not take goes through the graphs; a bad input
+  raises before any launch; ``simulate`` and ``mpc_rollout`` launch the
+  kernel once a sim step;
 - the sim step of phase L's closed loop where float32 arithmetic stalls
   (``contactimplicitmpc_tpu_torch/assets/sim_ip_f32_stall.npz``,
   ``tools/sim_ip_f32_stall.py``): the kernel converges on it, the build in
@@ -227,6 +228,28 @@ def test_adaptive_retries_and_refine_match_plain(card, states):
     assert torch.equal(got.iterations, want.iterations)
     assert float((got.z - want.z).abs().max()) <= F64_Z
     assert not bool(want.converged.all())
+
+
+@pytest.mark.cuda
+def test_shared_memory_and_batch_limits(card, states):
+    """The kernel's limits against the graphs, float64: the largest max_ls
+    (128 candidates a trip in one round, 105 KB of shared memory a block)
+    on the first 16 recorded steps with phase L's options, and 1024
+    problems (the recorded steps repeated; two blocks an SM, so the blocks
+    run in waves) with the hot path's: flags equal and |Δz| ≤ F64_Z, and
+    a repeated problem's solution the same bit for bit."""
+    z0, theta = (x.double() for x in states)
+    wide = dataclasses.replace(PHASE_L, max_ls=sim_mod.MAX_LS)
+    got, want = both(quadruped, z0[:16], theta[:16], wide)
+    same, gap = f64_gaps(got, want)
+    assert same and gap <= F64_Z, gap
+    n = z0.shape[0]
+    reps = -(-1024 // n)
+    zb, tb = (x.repeat(reps, 1)[:1024].contiguous() for x in (z0, theta))
+    got, want = both(quadruped, zb, tb, OPTIONS["hot_path"])
+    same, gap = f64_gaps(got, want)
+    assert same and gap <= F64_Z, gap
+    assert torch.equal(got.z[:n], got.z[n:2 * n])
 
 
 @pytest.mark.cuda

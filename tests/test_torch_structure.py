@@ -1,6 +1,8 @@
-"""The port's simulation interior point and structure-mode Newton solver
-against the JAX package (float64, CPU): one masked sim ``ip_solve`` step,
-the block-tridiagonal Cholesky/solve and the structured KKT solve on
+"""The port's structure-mode Newton solver against the JAX package
+(float64, CPU; the masked sim ``ip_solve`` step of three lanes from the
+gait's knots is a case of tests/test_torch_sim_ip.py's
+``test_first_sim_step_matches_jax``, sharing its compiled JAX solve): the
+block-tridiagonal Cholesky/solve and the structured KKT solve on
 random data, the NaN factor of a block that is not positive definite, and
 one ``structure_newton_solve`` from a perturbed state, the warm-start
 shift. Inputs are numpy arrays (seeded) handed to both packages."""
@@ -13,14 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-import contactimplicitmpc_tpu as ci
 from contactimplicitmpc_tpu.control import structure_solver as jss
 from contactimplicitmpc_tpu.control.implicit_dynamics import nd_of as jnd_of
 from contactimplicitmpc_tpu.control.linearized import LinearizedData as JLin
 from contactimplicitmpc_tpu.dims import Dims as JDims
 from contactimplicitmpc_tpu.hotpath import HotPathConfig as JHotPath
-from contactimplicitmpc_tpu.models import quadruped as jquad
-from contactimplicitmpc_tpu.sim.interior_point import IPOptions as JIPOptions
 
 import contactimplicitmpc_tpu_torch as pt
 from contactimplicitmpc_tpu_torch import interop
@@ -34,9 +33,6 @@ from contactimplicitmpc_tpu_torch.dims import Dims
 from contactimplicitmpc_tpu_torch.hotpath import HotPathConfig
 from contactimplicitmpc_tpu_torch.models.base import dims_of
 from contactimplicitmpc_tpu_torch.models.quadruped import quadruped
-from contactimplicitmpc_tpu_torch.sim.interior_point import (ip_solve,
-                                                             z_initialize)
-from contactimplicitmpc_tpu_torch.sim.residual import pack_theta, residual
 from contactimplicitmpc_tpu_torch.utils.gaits import load_gait
 
 F64 = torch.float64
@@ -67,53 +63,6 @@ def gait():
     ref = from_gait(quadruped, pt.flat_2d_lc, load_gait("quadruped", "gait2"),
                     update_friction=True, dtype=F64, device="cpu")
     return dims, ref
-
-
-def test_sim_ip_step_matches_jax(gait):
-    """One physics step of three lanes (the nominal state and two
-    perturbed ones) with the main path's sim options: 24 masked
-    iterations, the structured Schur backend and the merit line search."""
-    dims, ref = gait
-    sim_opts = HotPathConfig().sim_ip_options()
-    h = float(ref.h) / 5
-    rng = np.random.default_rng(0)
-    q0 = ref.q[0].numpy() + np.zeros((3, 1))
-    q1 = ref.q[1].numpy() + np.zeros((3, 1))
-    q1[1:] += 0.01 * rng.standard_normal((2, dims.nq))
-    u = np.repeat(ref.u[:1].numpy() / 5, 3, axis=0)
-
-    theta = pack_theta(t64(q0), t64(q1), t64(u), torch.zeros(3, dims.nw,
-                       dtype=F64), quadruped.mu_world, h)
-    got = ip_solve(dims, lambda z, th, k: residual(quadruped, pt.flat_2d_lc,
-                                                   z, th, k),
-                   z_initialize(dims, t64(q1)), theta, sim_opts)
-
-    jd = JDims(**dataclasses.asdict(dims))
-    jopts = JIPOptions(**dataclasses.asdict(sim_opts))
-
-    def one(z0, th):
-        return ci.ip_solve(jd, lambda z, t, k: ci.residual(
-            jquad, ci.flat_2d_lc, z, t, k), z0, th, jopts)
-
-    # one lane a call of one compiled program: tracing under vmap takes
-    # about twice as long, and the tracing is most of the time
-    one = jax.jit(one)
-    outs = [one(jnp.asarray(z0), jnp.asarray(th)) for z0, th in
-            zip(z_initialize(dims, t64(q1)).numpy(), theta.numpy())]
-    want = type(outs[0])(*(None if xs[0] is None else
-                           np.stack([np.asarray(x) for x in xs])
-                           for xs in zip(*outs)))
-    assert bool(np.all(np.asarray(want.converged)))
-    np.testing.assert_array_equal(got.converged.numpy(),
-                                  np.asarray(want.converged))
-    np.testing.assert_array_equal(got.iterations.numpy(),
-                                  np.asarray(want.iterations))
-    np.testing.assert_allclose(got.z.numpy(), np.asarray(want.z), rtol=0,
-                               atol=1e-9)
-    for k in ("rvio", "kvio"):
-        np.testing.assert_allclose(getattr(got, k).numpy(),
-                                   np.asarray(getattr(want, k)), rtol=0,
-                                   atol=1e-12)
 
 
 def _random_blocks(seed, n=4, stages=7, batch=2):
