@@ -178,12 +178,23 @@ Phases (any failure raises and the script exits non-zero):
    kernel's bound (``ops/sim_ip.py::bound_ms``) from the trips the
    problems took, at float32's rate (the tensors' type; the kernel
    computes in float64), with the Jacobian counted in its closed form and,
-   beside it for comparison, as the earlier warp kernel's dual numbers.
+   beside it for comparison, as the earlier warp kernel's dual numbers;
+21. newton — the MPC's Newton solve as replayed CUDA graphs
+   (``control/graphs.py``) against its eager route on one solve each of
+   path A (structure mode), C (direct, n = 300) and D (direct, n = 480),
+   and on a 20-step rollout of path A run both ways: bit for bit, the
+   knot kernel's launches through replays equal to the eager route's,
+   with each solve's replayed and eager time and its graphs' warm-up,
+   capture and pool memory (``newton_phase``).
 
 Every sim step of paths A, C and L is one launch of the sim kernel, and
 every sim step of every other path a replay of the sim solve's CUDA
-graphs: each counted run resets both counts and requires it, and the
-script prints them a path.
+graphs; every Newton solve of the nine MPC paths is one replay of its
+graphs (in direct mode a start and a trip a Newton iteration): each
+counted run resets the counts and requires it, and the script prints them
+a path. The knot kernel's launches are counted through the replays, and
+include those of the Newton graphs' warm-ups (a set a rollout, once a
+policy).
 
 The spans and device traces of one control period of each MPC path are
 tools/torch_profile_paths.py's.
@@ -191,7 +202,7 @@ tools/torch_profile_paths.py's.
 JSON lines give the bound and the knot kernel's share of it at each timed
 shape; the line before the card's name is a JSON object with both kernels:
 the knot kernel's comparison, launches (summed over the nine MPC paths,
-and by path), times and bound at path A's N = 1008 and, in
+and by path, and those of the Newton graphs' warm-ups by path), times and bound at path A's N = 1008 and, in
 ``instantiations``, each of the ten with its dimensions, template, models,
 paths and launches and its time, plain time, bound and share at its path's
 N; the sim kernel's largest float64 |Δz|, launches on A, C and L, and its
@@ -215,7 +226,9 @@ import numpy as np
 import torch
 
 import contactimplicitmpc_tpu_torch as pt
+from contactimplicitmpc_tpu_torch.control import graphs as newton_graphs
 from contactimplicitmpc_tpu_torch.control.gains import reference_gains
+from contactimplicitmpc_tpu_torch.control.graphs import NewtonSolve
 from contactimplicitmpc_tpu_torch.control.implicit_dynamics import (
     CONFIGURATION, default_mpc_ip_options)
 from contactimplicitmpc_tpu_torch.control.linearized import \
@@ -378,10 +391,11 @@ E_STEPS = 50
 # Path C's depth: tests/test_hotpath.py's 100 steps, now that the sim steps
 # are replayed graphs
 C_STEPS = 100
-# the sim graphs' counts and the sim kernel's launches of each path's
-# counted run (``counted``)
+# the sim graphs' counts, the sim kernel's launches and the Newton graphs'
+# counts of each path's counted run (``counted``)
 GRAPHS = {}
 SIM_LAUNCHES = {}
+NEWTON = {}
 # the paths whose sim steps the sim kernel takes (the quadruped on flat
 # ground); every other path's are graph replays
 KERNEL_PATHS = ("path A", "path C", "phase L")
@@ -632,29 +646,48 @@ def lane_success(converged):
     return float((per_lane >= 0.95).float().mean()), per_lane
 
 
-def counted(path, steps, fn):
-    """Run ``fn``, ``steps`` sim steps of ``path``, with the knot kernel's
-    and the sim kernel's launch counts and the sim graphs' counts
-    (``sim.graphs.stats``) set to 0 just before and read just after:
+def counted(path, steps, fn, solves=0):
+    """Run ``fn``, ``steps`` sim steps and ``solves`` Newton solves of
+    ``path``, with the knot kernel's and the sim kernel's launch counts and
+    the sim and Newton graphs' counts (``sim.graphs.stats``,
+    ``control.graphs.stats``) set to 0 just before and read just after:
     (result, knot launches, wall seconds). Every sim step's solve of the
     ``KERNEL_PATHS`` must be one launch of the sim kernel, and of every
-    other path one graph replay; the counts go into ``GRAPHS[path]`` and
-    ``SIM_LAUNCHES[path]``."""
+    other path one graph replay; every Newton solve one replay of its
+    graphs (the route ``"graphs"``; none eager). The counts go into
+    ``GRAPHS[path]``, ``SIM_LAUNCHES[path]`` and ``NEWTON[path]``; the knot
+    launches count the replays' and those of the Newton graphs' warm-ups
+    (real launches, one set a rollout: ``warmup_launches``)."""
     torch.cuda.synchronize()
     knot_ip.launches = 0
     sim_mod.sim_ip.launches = 0
     graphs.reset_stats()
+    newton_graphs.reset_stats()
     t0 = time.time()
     out = fn()
     torch.cuda.synchronize()
     wall = time.time() - t0
     GRAPHS[path] = {"steps": steps, **graphs.stats}
     SIM_LAUNCHES[path] = sim_mod.sim_ip.launches
+    NEWTON[path] = {"solves": solves, **newton_graphs.stats}
     kernel = path in KERNEL_PATHS
     want = (steps, 0) if kernel else (0, steps)
     got = (sim_mod.sim_ip.launches, graphs.stats["replays"])
     assert got == want, (path, "sim kernel launches and graph replays", got,
                          want)
+    got = (newton_graphs.stats["replays"], newton_graphs.stats["eager"])
+    assert got == (solves, 0), (path, "Newton replays and eager solves", got,
+                                solves)
+    if solves:
+        print(f"{path}: Newton route graphs, {solves} solves replayed "
+              f"({newton_graphs.stats['trips']} trip replays), "
+              f"{newton_graphs.stats['sets']} graph set(s) captured in "
+              f"{newton_graphs.stats['warmup_s']:.3f} s of warm-up and "
+              f"{newton_graphs.stats['capture_s']:.3f} s of capture, pool "
+              f"{newton_graphs.stats['pool_bytes'] / 2 ** 20:.1f} MiB; knot "
+              f"launches {knot_ip.launches}, of them "
+              f"{newton_graphs.stats['warmup_launches']} in the warm-ups",
+              flush=True)
     return out, knot_ip.launches, wall
 
 
@@ -736,10 +769,11 @@ def quadruped_path(path, cfg, steps, dev, tag, sweep=False):
         run = make_sharded_mpc_rollouts(make_mesh(), rollout, ref,
                                         cfg.n_sample)
         (res, stats), launches, wall = counted(
-            path, steps, lambda: run(q1s, v1s))
+            path, steps, lambda: run(q1s, v1s), steps // cfg.n_sample)
     else:
         res, launches, wall = counted(path, steps,
-                                      lambda: rollout(q1s, v1s))
+                                      lambda: rollout(q1s, v1s),
+                                      steps // cfg.n_sample)
     check_outputs(res)
     n_ctrl = steps // cfg.n_sample
     assert launches >= n_ctrl, (launches, n_ctrl)
@@ -818,7 +852,8 @@ def hopper_path(dev, tag):
     print(f"path B: warm-up (2 periods) {time.time() - t0:.2f} s {tag}",
           flush=True)
 
-    traj, launches, wall = counted("path B", steps, lambda: roll(steps))
+    traj, launches, wall = counted("path B", steps, lambda: roll(steps),
+                                   steps // n_sample)
     check_outputs(traj)
     assert launches >= steps // n_sample, launches
     ok = pt.status(traj)
@@ -901,7 +936,8 @@ def centroidal_path(dev, tag):
     print(f"path D: warm-up (2 periods) {time.time() - t0:.2f} s {tag}",
           flush=True)
 
-    res, launches, wall = counted("path D", steps, lambda: roll(steps))
+    res, launches, wall = counted("path D", steps, lambda: roll(steps),
+                                  steps // n_sample)
     check_outputs(res)
     assert launches >= steps // n_sample, launches
     ok = res.sim_converged.all(dim=1)
@@ -1077,7 +1113,8 @@ def flamingo_path(dev, tag, steps):
     """Path E: ``flamingo_rollout`` for ``steps`` sim steps with the health
     tests/test_mpc_flamingo_slope.py checks; returns the launches."""
     roll, ref, n_sample, sim_env, lanes = flamingo_rollout(dev)
-    res, launches, wall = counted("path E", steps, lambda: roll(steps))
+    res, launches, wall = counted("path E", steps, lambda: roll(steps),
+                                  steps // n_sample)
     check_outputs(res)
     assert launches >= steps // n_sample, launches
     ok = res.sim_converged.all(dim=1)
@@ -1116,7 +1153,8 @@ def hopper3d_path(dev, tag, steps):
     print(f"path F: warm-up (1 period) {time.time() - t0:.2f} s {tag}",
           flush=True)
 
-    traj, launches, wall = counted("path F", steps, lambda: roll(steps))
+    traj, launches, wall = counted("path F", steps, lambda: roll(steps),
+                                   steps // n_sample)
     check_outputs(traj)
     assert launches >= steps // n_sample, launches
     ok = pt.status(traj)
@@ -1205,7 +1243,8 @@ def point_foot_path(dev, tag):
     print(f"path I: warm-up (1 period) {time.time() - t0:.2f} s {tag}",
           flush=True)
 
-    res, launches, wall = counted("path I", I_STEPS, lambda: roll(I_STEPS))
+    res, launches, wall = counted("path I", I_STEPS, lambda: roll(I_STEPS),
+                                  I_STEPS // n_sample)
     check_outputs(res)
     ok = res.sim_converged.all(dim=1)
     q_end = res.q[:, -1]
@@ -1261,7 +1300,8 @@ def box_path(dev, tag):
     print(f"path K: warm-up (1 period) {time.time() - t0:.2f} s {tag}",
           flush=True)
 
-    res, launches, wall = counted("path K", K_STEPS, lambda: roll(K_STEPS))
+    res, launches, wall = counted("path K", K_STEPS, lambda: roll(K_STEPS),
+                                  K_STEPS // n_sample)
     check_outputs(res)
     ok = res.sim_converged.all(dim=1)
     q_err = tracking_errors(ref, res.q, res.u, res.gamma, res.b, n_sample)[0]
@@ -1574,6 +1614,85 @@ def graph_phase(dev, tag):
           f"against {t2 - t1:.2f} s eager {tag}", flush=True)
 
 
+def newton_phase(dev, tag):
+    """The Newton solve's replayed CUDA graphs (``control/graphs.py``)
+    against its eager route (``NewtonSolve._eager``) on the card: the second
+    Newton solve of a two-period run of path A (structure mode, one graph a
+    solve), path C (direct, n = 300) and path D (direct, n = 480), solved
+    again by a fresh ``NewtonSolve``, with the replay's and the eager
+    route's times (CUDA events), the set's warm-up and capture seconds and
+    pool memory, and the knot kernel's launches of one solve each way; then
+    a 20-step rollout of path A with its Newton solves run both ways
+    (``mock.patch``, as the graph phase does for B's sim steps). Every
+    output agrees bit for bit, and the launches through replays equal the
+    eager route's (the rollout's less its set's warm-up)."""
+    sys.path.insert(0, TESTS)
+    import test_torch_newton_graphs_cuda as newton_tests
+
+    def launches_of(fn):
+        torch.cuda.synchronize()
+        knot_ip.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        return knot_ip.launches
+
+    calls = {"A": lambda: newton_tests.path_call("A", dev),
+             "C": lambda: newton_tests.path_call("C", dev),
+             "D": lambda: newton_tests.recorded_call(
+                 lambda: centroidal_rollout(dev)[0](10))}
+    for name, record in calls.items():
+        solve, args = record()
+        assert solve.route(args[-1]) == "graphs", name
+        newton_graphs.reset_stats()
+        got = solve(*args)
+        torch.cuda.synchronize()
+        stats = dict(newton_graphs.stats)
+        replayed = cuda_ms(lambda: solve(*args), 5)
+        eager = cuda_ms(lambda: solve._eager(*args), 2)
+        want = solve._eager(*args)
+        same = newton_tests.equal(got, want)
+        counts = (launches_of(lambda: solve(*args)),
+                  launches_of(lambda: solve._eager(*args)))
+        kind = ("structure" if solve.structure else
+                f"direct, n = {solve.assembler.ind.ntot}")
+        print(f"newton: path {name}'s solve (16 lanes, float32, {kind}; "
+              f"iterations {want.iterations.tolist()}) replayed = eager bit "
+              f"for bit: {all(same)}; {replayed:.3f} ms replayed against "
+              f"{eager:.3f} ms eager; warm-up {stats['warmup_s']:.3f} s, "
+              f"capture and instantiation {stats['capture_s']:.3f} s, pool "
+              f"{stats['pool_bytes'] / 2 ** 20:.1f} MiB; trip replays "
+              f"{stats['trips']}; knot launches replayed / eager {counts} "
+              f"{tag}", flush=True)
+        assert all(same), (name, same)
+        assert counts[0] == counts[1] > 0, (name, counts)
+
+    cfg = HotPathConfig()
+    roll, ref, model, _, _ = make_quadruped_rollout(cfg, 20, torch.float32,
+                                                    device=dev)
+    q1s, v1s = conf_initial_states(model, ref)
+    t0 = time.time()
+    newton_graphs.reset_stats()
+    n_graphs = launches_of(lambda: roll(q1s, v1s))
+    warm = newton_graphs.stats["warmup_launches"]
+    got = roll(q1s, v1s)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    with mock.patch.object(NewtonSolve, "_graphed", NewtonSolve._eager):
+        n_eager = launches_of(lambda: roll(q1s, v1s))
+        want = roll(q1s, v1s)
+        torch.cuda.synchronize()
+    t2 = time.time()
+    same = newton_tests.equal(got, want)
+    print(f"newton: path A's rollout, 16 lanes x 20 steps, Newton replayed "
+          f"= eager bit for bit: {all(same)}; knot launches {n_graphs} "
+          f"replayed ({warm} of them the set's warm-up) against {n_eager} "
+          f"eager; two rollouts each way in {t1 - t0:.2f} s replayed "
+          f"(captures included) against {t2 - t1:.2f} s eager {tag}",
+          flush=True)
+    assert all(same), same
+    assert n_graphs - warm == n_eager > 0, (n_graphs, warm, n_eager)
+
+
 def sim_kernel_phase(dev, tag):
     """Phase S: the sim kernel against its plain version (the replayed
     graphs of ``ip_program``) on every sim step of a plain run of path A,
@@ -1657,7 +1776,8 @@ def contract_path(dev, tag):
     sys.path.insert(0, TESTS)
     import test_torch_contracts_cuda as contracts
     got, launches, wall = counted(
-        "phase L", 1000, lambda: contracts.CONTRACTS["quadruped"](dev))
+        "phase L", 1000, lambda: contracts.CONTRACTS["quadruped"](dev),
+        1000 // 5)
     print(f"phase L (tests/test_mpc_quadruped.py at 1000 steps, simulate + "
           f"ci_mpc_policy direct): {json.dumps(got)} (JAX float32: "
           f"{json.dumps(contracts.JAX_F32['quadruped'])}) in {wall:.2f} s, "
@@ -1779,6 +1899,7 @@ def main():
     timed("H", raibert_path, dev, tag)
     timed("J", two_process_phase, dev, tag)
     timed("graphs", graph_phase, dev, tag)
+    timed("newton", newton_phase, dev, tag)
     # ---- 20. the sim kernel against its plain version ------------------------
     sim_entry = timed("S", sim_kernel_phase, dev, tag)
     print("sim graphs of each counted run (one replay a sim step but on "
@@ -1787,6 +1908,11 @@ def main():
     print("sim kernel launches of each counted run (one a sim step on A, C "
           "and L, none elsewhere): " + json.dumps(SIM_LAUNCHES) + f" {tag}",
           flush=True)
+    print("Newton graphs of each counted run (one replay a solve, trip "
+          "replays in direct mode, sets captured, their warm-up and capture "
+          "seconds, pool bytes and warm-up knot launches): "
+          + json.dumps({k: v for k, v in NEWTON.items() if v["solves"]})
+          + f" {tag}", flush=True)
     print("phase walls (s, each with its warm-up and checks): "
           + json.dumps({k: round(v, 2) for k, v in walls.items()})
           + f" {tag}", flush=True)
@@ -1830,6 +1956,9 @@ def main():
         "ms": main_q[0], "plain_ms": main_q[1], "bound_ms": main_q[2],
         "bound_by": main_q[3], "library_ms": None,
         "launches_by_path": launches,
+        "newton_warmup_launches_by_path": {
+            p[-1]: v["warmup_launches"] for p, v in NEWTON.items()
+            if v["solves"]},
         "instantiations": instantiations}, {
         "name": "sim_ip", "route": "cuda",
         "source": "contactimplicitmpc_tpu_torch/csrc/sim_ip.cu",

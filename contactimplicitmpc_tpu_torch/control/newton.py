@@ -23,13 +23,15 @@ through static index tensors and solved by one batched dense solve.
 Every lane carries its own iterate, β, residual and iteration count. The
 adaptive loop runs while any lane is live and reads that one flag from the
 device each trip; ``fixed_newton_iters > 0`` runs masked trips and reads
-nothing.
+nothing. The loop is a program of pieces (``newton_program``: start, live,
+trip, finish) that ``newton_solve`` drives eagerly and
+``control/graphs.py`` replays as CUDA graphs on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +39,7 @@ import torch
 from ..dims import Dims
 from ..ops.linsolve import ldl_solve
 from ..sim.interior_point import IPOptions
+from ..utils.cuda_graphs import capturable_linalg
 from ..utils.spans import span
 from .implicit_dynamics import (CONFIGURATION, CONFIGURATION_FORCE,
                                 ImplicitDynamicsResult, implicit_dynamics,
@@ -314,46 +317,54 @@ def _where(mask, new, old):
         for n, o in zip(new, old)))
 
 
-def newton_solve(dims: Dims, mode: str, assembler: NewtonAssembler, obj,
-                 lin: LinearizedData, ref: ContactTraj, traj: ContactTraj,
-                 nu, q0, q1, alt, ip_opts: IPOptions,
-                 opts: NewtonOptions) -> NewtonResult:
-    """One MPC Newton solve (newton_solve!, newton.jl:169-288) for a batch
-    of lanes: the working trajectory ``traj`` with leaves (B, ...), duals
-    ``nu`` (B, H, nd), measured ``q0``, ``q1`` (B, nq), ``alt`` (B, nc).
-    ``lin`` (gathered to the horizon window), ``ref`` and the objective
-    are shared by the lanes."""
+class NewtonState(NamedTuple):
+    """The carry of the Newton loop: the iterate and what a trip needs of
+    it, leaves (B, ...)."""
+
+    traj: ContactTraj
+    nu: torch.Tensor
+    beta: torch.Tensor
+    imp: ImplicitDynamicsResult
+    r: torch.Tensor
+    r_norm: torch.Tensor
+    it: torch.Tensor
+
+
+class NewtonProgram(NamedTuple):
+    """``newton_solve``'s loop cut at its trips into functions of tensors
+    alone, none of which reads a value back to the host: ``start()`` the
+    carry at the sanitized, pinned warm start; ``live(s)`` the lanes the
+    next trip advances; ``trip(s)`` one masked trip (the KKT assembled and
+    solved, the line search, the β update); ``finish(s)`` the
+    ``NewtonResult``. ``run_newton`` drives them eagerly;
+    ``control/graphs.py`` captures them as CUDA graphs."""
+
+    start: Callable
+    live: Callable
+    trip: Callable
+    finish: Callable
+
+
+def newton_program(dims: Dims, mode: str, assembler: NewtonAssembler, obj,
+                   lin: LinearizedData, ref: ContactTraj, traj: ContactTraj,
+                   nu, q0, q1, alt, ip_opts: IPOptions,
+                   opts: NewtonOptions) -> NewtonProgram:
+    """``newton_solve``'s program (``NewtonProgram``) over the tensors of
+    its arguments, which its functions read when they are called."""
     dtype = traj.q.dtype
     device = traj.q.device
     batch = traj.q.shape[0]
     kappa = ip_opts.kappa_tol
-
-    # sanitize the warm start: any non-finite leaf (a diverged previous
-    # float32 solve) falls back to the reference value
-    traj = ContactTraj(traj.h, traj.kappa, *(
-        torch.where(torch.isfinite(w), w, r)
-        for w, r in zip(traj[2:], ref[2:])))
-    nu = torch.where(torch.isfinite(nu), nu, torch.zeros_like(nu))
-
-    # reset (newton.jl:130-167): pin the measured configurations
-    q = torch.cat([q0[:, None], q1[:, None], traj.q[:, 2:]], dim=1)
-    traj = update_theta(dims, traj._replace(q=q))
+    n_total = assembler.ind.ntot
 
     def imp_of(tr, alt_):
         return implicit_dynamics(dims, mode, lin, tr, alt_, ip_opts,
                                  fixed_iters=opts.fixed_ip_iters)
 
-    imp = imp_of(traj, alt)
-    r = assembler.residual(obj, imp, traj, ref, nu)
-    r_norm = torch.sum(torch.abs(r), dim=-1)
-    n_total = r.shape[-1]
-
     n_ls = opts.max_ls + 1
     alphas = 0.5 ** torch.arange(n_ls, dtype=dtype, device=device)
     alt_t = alt[:, None, :].expand(batch, n_ls, dims.nc)
     lane = torch.arange(batch, device=device)
-    beta = torch.full((batch,), opts.beta_init, dtype=dtype, device=device)
-    it = torch.zeros((batch,), dtype=torch.int32, device=device)
     bounded = np.isfinite(opts.ls_growth_allow)
     # unpivoted LDLᵀ is safe on the quasidefinite KKT only while the primal
     # diagonal stays meaningfully nonzero: in float32 the reference's 1e-100
@@ -368,7 +379,8 @@ def newton_solve(dims: Dims, mode: str, assembler: NewtonAssembler, obj,
             return ldl_solve(jac, r_c)
         # nothing is raised and nothing read back: a singular matrix gives
         # a non-finite step, which the guard in the body rejects
-        return torch.linalg.solve_ex(jac, r_c[..., None])[0][..., 0]
+        with capturable_linalg(jac):
+            return torch.linalg.solve_ex(jac, r_c[..., None])[0][..., 0]
 
     def body(traj_c, nu_c, beta_c, imp_c, r_c, r_norm_c):
         jac = assembler.jacobian(obj, imp_c, beta_c, kappa, dtype)
@@ -410,27 +422,74 @@ def newton_solve(dims: Dims, mode: str, assembler: NewtonAssembler, obj,
         return (ok, pick_of(trs), take(nns), beta_n, pick_of(ims), take(rrs),
                 rn_pick)
 
-    trips = opts.fixed_newton_iters if opts.fixed_newton_iters > 0 else None
-    trip = 0
-    while True:
-        live = ~(r_norm / n_total < opts.r_tol)   # a NaN residual is live
-        if trips is None:
-            # the adaptive loop's one read from the device a trip
-            live = live & (it < opts.max_iter)
-            if not bool(live.any()):
-                break
-        elif trip == trips:
-            break
-        trip += 1
+    def start():
+        # sanitize the warm start: any non-finite leaf (a diverged previous
+        # float32 solve) falls back to the reference value
+        tr = ContactTraj(traj.h, traj.kappa, *(
+            torch.where(torch.isfinite(w), w, r)
+            for w, r in zip(traj[2:], ref[2:])))
+        nu_s = torch.where(torch.isfinite(nu), nu, torch.zeros_like(nu))
+        # reset (newton.jl:130-167): pin the measured configurations
+        q = torch.cat([q0[:, None], q1[:, None], tr.q[:, 2:]], dim=1)
+        tr = update_theta(dims, tr._replace(q=q))
+        imp = imp_of(tr, alt)
+        r = assembler.residual(obj, imp, tr, ref, nu_s)
+        r_norm = torch.sum(torch.abs(r), dim=-1)
+        beta = torch.full((batch,), opts.beta_init, dtype=dtype,
+                          device=device)
+        it = torch.zeros((batch,), dtype=torch.int32, device=device)
+        return NewtonState(tr, nu_s, beta, imp, r, r_norm, it)
+
+    def live(s):
+        lv = ~(s.r_norm / n_total < opts.r_tol)   # a NaN residual is live
+        if opts.fixed_newton_iters <= 0:
+            lv = lv & (s.it < opts.max_iter)
+        return lv
+
+    def trip(s):
+        lv = live(s)
         ok, traj_n, nu_n, beta_n, imp_n, r_n, rn_n = body(
-            traj, nu, beta, imp, r, r_norm)
-        upd = live & ok
-        traj = _where(upd, traj_n, traj)
-        imp = _where(upd, imp_n, imp)
+            s.traj, s.nu, s.beta, s.imp, s.r, s.r_norm)
+        upd = lv & ok
         sel = lambda n, o: torch.where(
             upd.view((-1,) + (1,) * (o.dim() - 1)), n, o)
-        nu, r, r_norm = sel(nu_n, nu), sel(r_n, r), sel(rn_n, r_norm)
-        beta = torch.where(live, beta_n, beta)
-        it = it + live.to(torch.int32)
-    return NewtonResult(traj=traj, nu=nu, beta=beta, r_norm=r_norm,
-                        iterations=it)
+        return NewtonState(
+            traj=_where(upd, traj_n, s.traj), nu=sel(nu_n, s.nu),
+            beta=torch.where(lv, beta_n, s.beta),
+            imp=_where(upd, imp_n, s.imp), r=sel(r_n, s.r),
+            r_norm=sel(rn_n, s.r_norm), it=s.it + lv.to(torch.int32))
+
+    def finish(s):
+        return NewtonResult(traj=s.traj, nu=s.nu, beta=s.beta,
+                            r_norm=s.r_norm, iterations=s.it)
+
+    return NewtonProgram(start, live, trip, finish)
+
+
+def run_newton(prog: NewtonProgram, opts: NewtonOptions) -> NewtonResult:
+    """Drive ``prog``: ``opts.fixed_newton_iters`` trips with no read from
+    the device, or trips while a lane is live with one read of that flag a
+    trip (the adaptive loop); then ``finish``."""
+    s = prog.start()
+    if opts.fixed_newton_iters > 0:
+        for _ in range(opts.fixed_newton_iters):
+            s = prog.trip(s)
+    else:
+        while bool(prog.live(s).any()):    # one read a trip
+            s = prog.trip(s)
+    return prog.finish(s)
+
+
+def newton_solve(dims: Dims, mode: str, assembler: NewtonAssembler, obj,
+                 lin: LinearizedData, ref: ContactTraj, traj: ContactTraj,
+                 nu, q0, q1, alt, ip_opts: IPOptions,
+                 opts: NewtonOptions) -> NewtonResult:
+    """One MPC Newton solve (newton_solve!, newton.jl:169-288) for a batch
+    of lanes: the working trajectory ``traj`` with leaves (B, ...), duals
+    ``nu`` (B, H, nd), measured ``q0``, ``q1`` (B, nq), ``alt`` (B, nc).
+    ``lin`` (gathered to the horizon window), ``ref`` and the objective
+    are shared by the lanes. The loop is ``newton_program``'s, driven
+    eagerly (``run_newton``)."""
+    return run_newton(newton_program(dims, mode, assembler, obj, lin, ref,
+                                     traj, nu, q0, q1, alt, ip_opts, opts),
+                      opts)

@@ -31,13 +31,12 @@ from ..models.base import Model, dims_of
 from ..sim.interior_point import IPOptions
 from ..sim.simulator import PolicyObs
 from ..utils.spans import span
+from .graphs import NewtonSolve
 from .implicit_dynamics import (CONFIGURATION_FORCE, default_mpc_ip_options,
                                 nd_of)
 from .linearized import gather, linearize_trajectory
-from .newton import NewtonAssembler, NewtonOptions, newton_solve
-from .structure_solver import (StructureState, shift_state,
-                               state_from_reference, structure_newton_solve,
-                               structure_objective_from_tracking)
+from .newton import NewtonOptions
+from .structure_solver import StructureState, shift_state, state_from_reference
 from .trajectory import (ContactTraj, expand_traj, get_stride, rot_n_stride,
                          slice_horizon)
 
@@ -111,11 +110,9 @@ def ci_mpc_policy(model: Model, env, ref_traj: ContactTraj, obj, h_mpc: int,
     # (ImplicitTrajectory, implicit_dynamics.jl:21-90)
     lin = linearize_trajectory(model, env, ref_traj, kappa_mpc)
     stride = get_stride(model, ref_traj, stride_idx)
-    if structure:
-        sobj = structure_objective_from_tracking(dims, obj, n_opts.beta_init,
-                                                 h_mpc)
-    else:
-        assembler = NewtonAssembler(dims, h_mpc, mode)
+    # every control update's Newton solve: replayed CUDA graphs on the card
+    newton = NewtonSolve(dims, mode, obj, h_mpc, ip_opts, n_opts,
+                         newton_mode)
 
     def st_ref_of(ref_window):
         return state_from_reference(ref_window.q[:h_mpc + 1],
@@ -174,10 +171,9 @@ def ci_mpc_policy(model: Model, env, ref_traj: ContactTraj, obj, h_mpc: int,
                 st0 = StructureState(*(lanes(x, batch)
                                        for x in st_ref_of(ref_window)))
             with span("newton", obs.q1):
-                result = structure_newton_solve(
-                    dims, sobj, lin_w, q_ref, u_ref,
-                    ref_window.theta[:h_mpc - 1], state.q0, obs.q1, st0, alt,
-                    ip_opts, n_opts, h_mpc)
+                result = newton(lin_w, q_ref, u_ref,
+                                ref_window.theta[:h_mpc - 1], state.q0,
+                                obs.q1, st0, alt)
             solved = dict(warm=result.state, u=result.state.u[:, 1])
         else:
             lin_w = gather(lin, state.window)
@@ -187,9 +183,8 @@ def ci_mpc_policy(model: Model, env, ref_traj: ContactTraj, obj, h_mpc: int,
                 traj0 = expand_traj(ref_window, (batch,))
                 nu0 = torch.zeros_like(state.nu)
             with span("newton", obs.q1):
-                result = newton_solve(dims, mode, assembler, obj, lin_w,
-                                      ref_window, traj0, nu0, state.q0,
-                                      obs.q1, alt, ip_opts, n_opts)
+                result = newton(lin_w, ref_window, traj0, nu0, state.q0,
+                                obs.q1, alt)
             solved = dict(newton_traj=result.traj, nu=result.nu,
                           u=result.traj.u[:, 0])
 

@@ -12,7 +12,9 @@ solves (``sim_opts.fixed_iters``, ``n_opts.fixed_newton_iters`` or
 structure mode) no value is read back to the host until the rollout
 returns; the adaptive loops read one flag a trip. The sim steps' solves
 are ``sim.graphs.SimSolve``'s: on the card one launch of the sim kernel
-for the quadruped on flat ground, replayed CUDA graphs otherwise.
+for the quadruped on flat ground, replayed CUDA graphs otherwise. The
+Newton solves are ``control.graphs.NewtonSolve``'s: replayed CUDA graphs
+on the card (with fixed knot solves), eager on the CPU.
 """
 
 from __future__ import annotations
@@ -27,14 +29,13 @@ from ..sim.graphs import SimSolve
 from ..sim.interior_point import IPOptions, z_initialize
 from ..sim.residual import pack_theta
 from ..utils.spans import span
+from .graphs import NewtonSolve
 from .implicit_dynamics import (CONFIGURATION, default_mpc_ip_options,
                                 nd_of)
 from .linearized import gather, linearize_trajectory
-from .newton import NewtonAssembler, NewtonOptions, newton_solve
+from .newton import NewtonOptions
 from .policy import CIMPCOptions
-from .structure_solver import (shift_state, state_from_reference,
-                               structure_newton_solve,
-                               structure_objective_from_tracking)
+from .structure_solver import shift_state, state_from_reference
 from .trajectory import (ContactTraj, expand_traj, get_stride, slice_horizon,
                          update_theta, update_z)
 
@@ -98,12 +99,9 @@ def mpc_rollout(model: Model, env, ref_traj: ContactTraj, obj,
 
     lin = linearize_trajectory(model, env, ref_traj, kappa_mpc)
     stride = get_stride(model, ref_traj, stride_idx)
-    if structure:
-        sobj = structure_objective_from_tracking(dims, obj, n_opts.beta_init,
-                                                 h_mpc)
-    else:
-        nd = nd_of(dims, mode)
-        assembler = NewtonAssembler(dims, h_mpc, mode)
+    newton = NewtonSolve(dims, mode, obj, h_mpc, ip_opts, n_opts,
+                         newton_mode)
+    nd = nd_of(dims, mode)
 
     def ref_window_at(t: int) -> ContactTraj:
         """Rows [t, t+h_mpc) of the receding-horizon reference — the closed
@@ -183,7 +181,7 @@ def mpc_rollout(model: Model, env, ref_traj: ContactTraj, obj,
     # residual far above tolerance resets the next period's warm start to
     # the reference (newton_reset_scale = 0 keeps the reference semantics)
     n_norm = ((h_mpc - 1) * (dims.nu + 4 * nq) if structure
-              else h_mpc * (assembler.ind.nr + nd))
+              else newton.assembler.ind.ntot)
     fail_tol = newton_reset_scale * n_opts.r_tol * n_norm
 
     q1 = q1.to(dtype)
@@ -233,10 +231,9 @@ def mpc_rollout(model: Model, env, ref_traj: ContactTraj, obj,
                     torch.where(wm(warm_state.nu2), warm_state.nu2,
                                 st_ref.nu2))
             with span("newton", qb_sim):
-                result = structure_newton_solve(
-                    dims, sobj, lin_w, q_ref, u_ref,
-                    ref_window.theta[:h_mpc - 1], q_ctrl_prev, qb_sim, st0,
-                    alt, ip_opts, n_opts, h_mpc)
+                result = newton(lin_w, q_ref, u_ref,
+                                ref_window.theta[:h_mpc - 1], q_ctrl_prev,
+                                qb_sim, st0, alt)
             u = result.state.u[:, 1]
             warm_state = result.state
         else:
@@ -248,9 +245,8 @@ def mpc_rollout(model: Model, env, ref_traj: ContactTraj, obj,
             # newton sees configurations one control period (= gait step
             # h) apart: (q at previous update, current q) — policy.jl:117-132
             with span("newton", qb_sim):
-                result = newton_solve(dims, mode, assembler, obj, lin_w,
-                                      ref_window, traj0, nu0, q_ctrl_prev,
-                                      qb_sim, alt, ip_opts, n_opts)
+                result = newton(lin_w, ref_window, traj0, nu0, q_ctrl_prev,
+                                qb_sim, alt)
             u = result.traj.u[:, 0]
             warm_state, nu = result.traj, result.nu
 

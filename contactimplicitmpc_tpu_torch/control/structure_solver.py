@@ -11,7 +11,10 @@ with per-stage states x_t = (qa_t, qb_t) = (q_{t}, q_{t+1}) and the
 constraints ν1_t: qa_{t+1} − qb_t = 0 and ν2_t: qb_{t+1} − z*(qa_t, qb_t,
 u_t) = 0. ``Y = C S⁻¹ Cᵀ`` is block tridiagonal with 2nq blocks, factored
 by a block Cholesky sweep and solved by one forward and one backward
-substitution, each a Python loop over the stages.
+substitution, each a Python loop over the stages. On the card the sweep
+takes cuSOLVER's and cuBLAS's routines (``capturable_linalg``), eagerly
+as in the captured solve (``control/graphs.py`` replays the whole
+``structure_newton_solve`` as one CUDA graph).
 
 Every function takes an optional leading batch shape (lanes, and lanes ×
 line-search trials); the objective and the reference window broadcast.
@@ -30,6 +33,7 @@ from ..dims import Dims
 from ..ops.knot_ip import knot_ip
 from ..ops.linsolve import mv
 from ..sim.interior_point import IPOptions
+from ..utils.cuda_graphs import capturable_linalg
 from .implicit_dynamics import adaptive_knot_solve
 from .linearized import LinearizedData
 from .newton import NewtonOptions
@@ -220,8 +224,9 @@ def structure_kkt_solve(dims: Dims, obj: StructureObjective, aa, ab, ba,
     beta_n = torch.cat([beta1, beta2], dim=-1)  # (..., h-1, 2nq)
 
     yii, yij = compute_y_blocks(obj, aa, ab, ba, beta, h)
-    lii, lji = block_tridiag_cholesky(yii, yij)
-    dnu = block_tridiag_solve(lii, lji, beta_n)
+    with capturable_linalg(yii):
+        lii, lji = block_tridiag_cholesky(yii, yij)
+        dnu = block_tridiag_solve(lii, lji, beta_n)
     dnu1, dnu2 = dnu[..., :nq], dnu[..., nq:]
 
     # Δz recovery (compute_Δz!, methods.jl:539-557)
@@ -407,7 +412,9 @@ def structure_newton_solve(dims: Dims, sobj: StructureObjective,
     counts no iteration, as under a vmapped ``while_loop``; with
     ``opts.fixed_newton_iters > 0`` it is that many masked trips, a lane
     passing through once it has converged. Nothing is read back to the
-    host either way.
+    host either way, so that with fixed knot solves
+    (``opts.fixed_ip_iters > 0``) the whole solve is one CUDA graph on the
+    card (``control/graphs.py``).
     """
     h = horizon
     dtype = q_ref.dtype

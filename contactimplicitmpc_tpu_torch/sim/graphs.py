@@ -28,19 +28,18 @@ whole solve in one launch; every other model or terrain keeps, for each (batch s
   would save little and spend up to k − 1 trips of device work past the
   last live problem.
 
-A graph set is captured at its first call: each piece runs once eagerly on
-a side stream (the models' constants and the libraries' handles and
-workspaces are made there, outside any capture), then is captured on that
-stream, the set's graphs sharing one memory pool (they replay one after
-another on one stream, and each output is copied out before the next
-replay). A capture that fails raises: there is no eager path on the card.
-The outputs are copied out of the graphs' buffers before the call returns.
+A graph set is captured at its first call (``utils/cuda_graphs.py``'s
+``Captured``): each piece runs once eagerly on a side stream (the models'
+constants and the libraries' handles and workspaces are made there,
+outside any capture), then is captured on that stream, the set's graphs
+sharing one memory pool (they replay one after another on one stream, and
+each output is copied out before the next replay). A capture that fails
+raises: there is no eager path on the card. The outputs are copied out of
+the graphs' buffers before the call returns.
 """
 
 from __future__ import annotations
 
-import gc
-import time
 from typing import Callable
 
 import torch
@@ -48,6 +47,7 @@ import torch
 from ..dims import Dims
 from ..models.base import Model, dims_of
 from ..ops import sim_ip
+from ..utils.cuda_graphs import Captured
 from .interior_point import (IPOptions, IPResult, IPState, ip_program,
                              ip_solve, run_program)
 from .residual import residual
@@ -76,15 +76,11 @@ class _GraphSet:
         prog = ip_program(dims, residual_fn, self.z0, self.theta, opts,
                           cone=cone)
         self.fixed = opts.fixed_iters > 0
-        device = z0.device
-        stream = torch.cuda.Stream(device)
-        pool = torch.cuda.graph_pool_handle()
-        t0 = time.perf_counter()
         if not self.fixed:
             # the adaptive loop's carry and live flag, made on the caller's
             # stream outside the graphs' pool
             self.state = IPState(*(x.clone() for x in prog.start(self.z0)))
-            self.flag = torch.zeros((), dtype=torch.bool, device=device)
+            self.flag = torch.zeros((), dtype=torch.bool, device=z0.device)
 
             def store(new):
                 for dst, src in zip(self.state, new):
@@ -99,66 +95,38 @@ class _GraphSet:
         else:
             pieces = {"solve": lambda: run_program(prog, self.z0, opts)}
 
-        # the graphs read tensors the program made outside them (its
-        # constants): the set keeps the program, and so them, alive. It
-        # keeps no piece: they refer to the set, and a cycle would leave a
-        # dead set's graphs to the cyclic collector, which may run inside
-        # another capture
-        self.prog = prog
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            # warm-up, outside any capture: each piece once (a fixed solve
-            # through one trip, not all of its trips)
+        def warmup():
+            # each piece once (a fixed solve through one trip, not all of
+            # its trips)
             if self.fixed:
                 s = prog.trip(prog.start(self.z0))
                 prog.finish(prog.restart(s) if opts.retries else s)
             else:
                 for fn in pieces.values():
                     fn()
-        torch.cuda.current_stream(device).wait_stream(stream)
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        t1 = time.perf_counter()
-        self.graphs, self.outputs = {}, {}
-        # no cyclic collection during a capture: freeing another set's
-        # graphs frees device memory, which invalidates the capture. The
-        # capture mode is thread_local: other threads (NCCL's watchdog on a
-        # sweep) may query the device meanwhile
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            for name, fn in pieces.items():
-                g = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(g, pool=pool, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    self.outputs[name] = fn()
-                self.graphs[name] = g
-        finally:
-            if collecting:
-                gc.enable()
-        torch.cuda.synchronize(device)
-        stats["sets"] += 1
-        stats["warmup_s"] += t1 - t0
-        stats["capture_s"] += time.perf_counter() - t1   # and instantiation
-        stats["pool_bytes"] += torch.cuda.memory_reserved(device) - reserved
+
+        # the graphs read tensors the program made outside them (its
+        # constants): the set keeps the program, and so them, alive. It
+        # keeps no piece: they refer to the set, and a cycle would leave a
+        # dead set's graphs to the cyclic collector, which may run inside
+        # another capture
+        self.prog = prog
+        self.graphs = Captured(pieces, warmup, z0.device, stats)
 
     def __call__(self, z0, theta) -> IPResult:
         stats["replays"] += 1
         self.z0.copy_(z0)
         self.theta.copy_(theta)
         if self.fixed:
-            self.graphs["solve"].replay()
-            out = self.outputs["solve"]
+            out = self.graphs.replay("solve")
         else:
-            self.graphs["start"].replay()
+            self.graphs.replay("start")
             for attempt in range(self.opts.retries + 1):
                 if attempt:
-                    self.graphs["restart"].replay()
+                    self.graphs.replay("restart")
                 while bool(self.flag):        # one read a trip
-                    self.graphs["trip"].replay()
-            self.graphs["finish"].replay()
-            out = self.outputs["finish"]
+                    self.graphs.replay("trip")
+            out = self.graphs.replay("finish")
         return IPResult(*(None if x is None else x.clone() for x in out))
 
 

@@ -32,7 +32,6 @@ more solve with ``nθ`` right-hand sides.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
@@ -43,6 +42,7 @@ from ..dims import Dims
 from ..env import LINEARIZED_CONE
 from ..ops.linsolve import gj_inverse
 from ..ops.soc import NCConeLayout, soc_product, soc_step_length
+from ..utils.cuda_graphs import capturable_linalg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,35 +147,17 @@ def make_dense_solver(dims: Dims, jacobian_fn, opts: IPOptions,
             rz = torch.cat([rz[:, :ne], torch.cat([
                 rz[:, ne:, :nx], torch.diag_embed(y2), torch.diag_embed(y1)],
                 dim=-1)], dim=-2)
-        with _capturable_linalg(rz):
+        with capturable_linalg(rz):
             return torch.linalg.lu_factor_ex(rz)[:2]
 
     def solve(factors, rhs):
         vec = rhs.dim() == 2
-        with _capturable_linalg(rhs):
+        with capturable_linalg(rhs):
             out = torch.linalg.lu_solve(*factors,
                                         rhs[..., None] if vec else rhs)
         return out[..., 0] if vec else out
 
     return factor, solve
-
-
-@contextlib.contextmanager
-def _capturable_linalg(like):
-    """On the card, PyTorch's LU calls with cuSOLVER's and cuBLAS's
-    batched routines for the duration of the block: for a batch of more
-    than 8 small matrices its default choice is MAGMA, whose batched LU
-    synchronises the device, which a CUDA graph (``sim/graphs.py``) cannot
-    hold. The eager solve takes the same routines, so the two agree."""
-    if not like.is_cuda:
-        yield
-        return
-    before = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("cusolver")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.preferred_linalg_library(before)
 
 
 def make_ncp_schur_solver(dims: Dims, residual_fn, opts: IPOptions):

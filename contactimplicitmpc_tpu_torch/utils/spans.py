@@ -8,7 +8,11 @@ a GPU, so that the time is the device's work and not its enqueueing. The
 synchronisation serialises host and device: a run with spans on is slower
 than one without, and only the shares are read from it. Spans nest
 (``newton`` holds ``kkt_solve`` and ``knot_ip``); each name also counts
-its entries.
+its entries. A span over CUDA tensors does nothing while the current
+stream is capturing a CUDA graph (a synchronisation would break the
+capture, and the body launches nothing then): inside the MPC's replayed
+Newton solve (``control/graphs.py``) only the outer ``newton`` span, around
+the replay, is timed.
 """
 
 from __future__ import annotations
@@ -36,10 +40,10 @@ def stop() -> dict:
 
 @contextlib.contextmanager
 def span(name: str, like=None):
-    if _totals is None:
+    sync = like is not None and like.is_cuda
+    if _totals is None or (sync and torch.cuda.is_current_stream_capturing()):
         yield
         return
-    sync = like is not None and like.is_cuda
     if sync:
         torch.cuda.synchronize()
     t0 = time.perf_counter()

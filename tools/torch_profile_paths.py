@@ -1,11 +1,11 @@
 """Where one control period of each of chip_smoke.py's MPC paths spends the
 device's and the host's time, on the GPU.
 
-    python3 tools/torch_profile_paths.py [--paths ABCDEFIK] [--steps N]
+    python3 tools/torch_profile_paths.py [--paths ABCDEFIK] [--steps N] [--repeats R] [--periods P]
 
 ``--paths`` picks the paths by letter (all eight by default). ``--steps N``
 also times one unprofiled run of N sim steps of each picked path on the
-host clock (``steps_wall_s``; N a multiple of the path's period, the sim
+host clock (``steps_wall_s``; N a multiple of the path's period, the
 graphs' captures included), after its period's profile: ``--paths E
 --steps 50`` gives path E's wall at 50 steps beside its kernels a period.
 
@@ -17,26 +17,39 @@ path F (3D hopper, ``simulate`` + ``ci_mpc_policy`` direct), path I
 (point-foot quadruped standing under a push, ``mpc_rollout`` direct; its
 first periods, before the push) and path K (its box variant beside the
 step), 16 lanes each, a period N_sample sim steps (5; the 3D hopper's 10).
-Each rollout captures its sim solve's CUDA graphs at its first sim step
-(``sim/graphs.py``), so a period is measured as the difference between a
-run of two periods and a run of one: after a warm-up run of one period,
-each of the two runs once on the host clock without a profiler, once under
-``torch.profiler`` and once with the host-synchronised spans of
-``utils/spans.py`` on (sim IP, Newton, of it the KKT solve and the knot
-kernel; each span waits for the device, so the spanned wall is longer than
-the plain one). One JSON line a path: the period's unprofiled wall, the
-device's busy time (the sum of every kernel's self time) and its share of
-that wall, the kernels that ran, the kernels launched from the host
+A rollout captures its sim solve's and its Newton solve's CUDA graphs at
+their first call (``sim/graphs.py``, ``control/graphs.py``; a policy's
+Newton graphs once for the policy), so a period is measured as the
+difference between a run of P + 1 periods (``--periods P``, 4) and a run
+of one, over P: after a warm-up run of one period, the two runs in turn
+R times (``--repeats R``, 3) on the host clock without a profiler (the
+line gives each period, ``period_walls_s``, and their median,
+``wall_s``), once under ``torch.profiler`` and once with the
+host-synchronised spans of ``utils/spans.py`` on (sim IP and Newton; each
+span waits for the device, so the spanned wall is longer than the plain
+one). The captures' seconds, sim and Newton, are taken out of each run's
+wall and of the ``sim_ip`` and ``newton`` spans before the difference.
+
+One JSON line a path, a period's: the unprofiled wall, the device's busy
+time (the sum of every kernel's self time) and its share of that wall,
+the kernels that ran, the kernels launched from the host
 (``cudaLaunchKernel``, ``cuLaunchKernel`` and their ``Ex`` forms, as the
-profiler records those calls) against the graph replays (``cudaGraphLaunch``) whose
-nodes ran the others, the knot kernel's launches (prologue and solve
-counted apart) and device time, the sim kernel's (``csrc/sim_ip.cu``, one
-a sim step of paths A and C), the five kernels with the most device
-time, the spans (seconds and entries by name) with their wall, and the
-two-period run's graph captures (``sim.graphs.stats``: sets, warm-up and
-capture seconds, pool bytes). The captures' seconds are taken out of each
-run's wall and ``sim_ip`` span before the difference: they vary from run
-to run by more than a period costs. Only the device's activity is traced; the
+profiler records those calls) against the graph replays
+(``cudaGraphLaunch``) whose nodes ran the others, the knot kernel's
+launches (prologue and solve counted apart) and device time, the sim
+kernel's (``csrc/sim_ip.cu``, one a sim step of paths A and C), the five
+kernels with the most device time, the spans (seconds and entries by
+name) with their wall, the Newton replays and trip replays
+(``control.graphs.stats``) and the longer run's sim and Newton captures
+(sets, warm-up and capture seconds, pool bytes). Inside a replayed Newton
+solve the ``kkt_solve`` and ``knot_ip`` spans do nothing (a capture cannot
+synchronise; they would time the graphs' warm-ups alone, and are left
+out), so the KKT solve's time comes from the device trace: the first KKT
+a path's warm-up run solves is kept (the direct mode's ``ldl_solve``, the
+structure mode's Riccati sweep, ``structure_kkt_solve``), captured alone
+and replayed under ``torch.profiler``, and its device time a solve times
+the period's KKT solves (direct mode one a trip replayed, structure mode
+one a masked trip) is ``kkt_solve_device_s``. Only the device's activity is traced; the
 profiler still slows the host, so the busy share is taken against the
 unprofiled wall.
 """
@@ -47,6 +60,7 @@ import os
 import re
 import sys
 import time
+from unittest import mock
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -54,11 +68,15 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
+from contactimplicitmpc_tpu_torch.control import graphs as newton_graphs  # noqa: E402,E501
+from contactimplicitmpc_tpu_torch.control import newton  # noqa: E402
+from contactimplicitmpc_tpu_torch.control import structure_solver  # noqa: E402,E501
 from contactimplicitmpc_tpu_torch.device import describe  # noqa: E402
 from contactimplicitmpc_tpu_torch.hotpath import (  # noqa: E402
     HotPathConfig, conf_initial_states, make_quadruped_rollout)
 from contactimplicitmpc_tpu_torch.sim import graphs  # noqa: E402
 from contactimplicitmpc_tpu_torch.utils import spans  # noqa: E402
+from contactimplicitmpc_tpu_torch.utils.cuda_graphs import Captured  # noqa: E402,E501
 
 
 def quadruped_run(cfg, dev):
@@ -78,36 +96,95 @@ def general_run(rollout):
     return (lambda n: (lambda: roll(n))), n_sample
 
 
-def capture_seconds():
-    """Warm-up and capture seconds of the sim graphs since the last
-    ``graphs.reset_stats()``."""
-    return graphs.stats["warmup_s"] + graphs.stats["capture_s"]
+def capture_seconds(stats):
+    """Warm-up and capture seconds in graph ``stats`` since their last
+    reset."""
+    return stats["warmup_s"] + stats["capture_s"]
+
+
+def reset():
+    graphs.reset_stats()
+    newton_graphs.reset_stats()
 
 
 def spanned(fn):
     """Run ``fn`` with host-synchronised spans on: ({name: [s, n]}, wall),
-    the sim graphs' warm-up and capture taken out of the ``sim_ip`` span
-    and the wall."""
+    the sim and Newton graphs' warm-ups and captures taken out of the
+    ``sim_ip`` and ``newton`` spans and the wall."""
     torch.cuda.synchronize()
-    graphs.reset_stats()
+    reset()
     spans.start()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out = {k: list(v) for k, v in spans.stop().items()}
-    out["sim_ip"][0] -= capture_seconds()
-    return out, wall - capture_seconds()
+    sim_s, newton_s = (capture_seconds(graphs.stats),
+                       capture_seconds(newton_graphs.stats))
+    out["sim_ip"][0] -= sim_s
+    out["newton"][0] -= newton_s
+    for inside in ("kkt_solve", "knot_ip"):   # only the warm-ups' now
+        out.pop(inside, None)
+    return out, wall - sim_s - newton_s
 
 
 def timed(fn):
-    """Host wall of ``fn``, the sim graphs' warm-up and capture left out."""
+    """(host wall of ``fn``, the sim and Newton graphs' warm-ups and
+    captures left out; the Newton graphs' counts of the run)."""
     torch.cuda.synchronize()
-    graphs.reset_stats()
+    reset()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    return time.perf_counter() - t0 - capture_seconds()
+    wall = time.perf_counter() - t0
+    return (wall - capture_seconds(graphs.stats)
+            - capture_seconds(newton_graphs.stats), dict(newton_graphs.stats))
+
+
+def first_kkt(fn):
+    """Run ``fn`` and keep the first KKT system its Newton solves outside a
+    capture, the direct mode's ``ldl_solve`` or the structure mode's
+    Riccati sweep (``structure_kkt_solve``): ((function, arguments) or
+    None, the KKT solves made outside a capture)."""
+    kept, calls = [], [0]
+
+    def keeper(module, name):
+        original = getattr(module, name)
+
+        def keep(*args):
+            if not torch.cuda.is_current_stream_capturing():
+                calls[0] += 1
+                if not kept:
+                    kept.append((original, tuple(
+                        a.clone() if isinstance(a, torch.Tensor) else a
+                        for a in args)))
+            return original(*args)
+
+        return mock.patch.object(module, name, keep)
+
+    with keeper(newton, "ldl_solve"), \
+            keeper(structure_solver, "structure_kkt_solve"):
+        fn()
+    return (kept[0] if kept else None), calls[0]
+
+
+def kkt_device_ms(kkt, reps=10):
+    """Device ms of one solve of ``kkt`` (``first_kkt``'s), captured alone
+    and replayed ``reps`` times under ``torch.profiler``, and its kernels a
+    solve."""
+    stats = dict.fromkeys(("sets", "warmup_s", "capture_s", "pool_bytes"), 0)
+    fn, args = kkt
+    solve = lambda: fn(*args)
+    device = next(a for a in args if isinstance(a, torch.Tensor)).device
+    captured = Captured({"kkt": solve}, solve, device, stats)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            captured.replay("kkt")
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kernels) * 1e-3 / reps,
+            sum(e.count for e in kernels) / reps)
 
 
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -129,10 +206,11 @@ def profiled(fn):
     return kernels, calls
 
 
-def minus(two, one):
-    """Per-key difference of two {key: (count, µs)} or {key: count}."""
-    sub = (lambda a, b: tuple(x - y for x, y in zip(a, b))
-           if isinstance(a, tuple) else a - b)
+def minus(two, one, periods):
+    """Per-key difference of two {key: (count, µs)} or {key: count}, over
+    ``periods``."""
+    sub = (lambda a, b: tuple((x - y) / periods for x, y in zip(a, b))
+           if isinstance(a, tuple) else (a - b) / periods)
     zero = lambda a: (0, 0.0) if isinstance(a, tuple) else 0
     return {k: sub(v, one.get(k, zero(v))) for k, v in two.items()}
 
@@ -142,6 +220,8 @@ def main():
         description="one profiled control period of chip_smoke's paths")
     parser.add_argument("--paths", default="ABCDEFIK")
     parser.add_argument("--steps", type=int, default=0)
+    parser.add_argument("--repeats", type=int, default=3)
+    parser.add_argument("--periods", type=int, default=4)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_paths: CUDA is not available")
@@ -168,30 +248,46 @@ def main():
     for letter in args.paths:
         name, build = by_letter[letter]
         run, n_period = build()
-        one, two = run(n_period), run(2 * n_period)
-        one()
-        walls = [timed(one), timed(two)]
-        capture = dict(graphs.stats)     # of the two-period run
-        wall = walls[1] - walls[0]
+        p = args.periods
+        one, two = run(n_period), run((p + 1) * n_period)
+        kkt, kkt_calls = first_kkt(one)
+        periods = []
+        for _ in range(args.repeats):
+            (t1, n1), (t2, n2) = timed(one), timed(two)
+            periods.append((t2 - t1) / p)
+        walls = [t1, t2]                 # of the last repeat
+        capture = dict(graphs.stats)     # of the longer run
+        wall = sorted(periods)[len(periods) // 2]
+        newton_period = {k: (n2[k] - n1[k]) / p for k in ("replays", "trips")}
+        kkt_ms, kkt_kernels = kkt_device_ms(kkt) if kkt else (None, None)
+        structure = kkt is not None and kkt[0] is not newton.ldl_solve
+        # a direct-mode trip solves one KKT; a structure-mode solve as many
+        # as its masked trips, which the warm-up's eager solve counted
+        kkt_solves = (newton_period["replays"] * kkt_calls if structure
+                      else newton_period["trips"])
         (k1, c1), (k2, c2) = profiled(one), profiled(two)
-        kernels, calls = minus(k2, k1), minus(c2, c1)
+        kernels, calls = minus(k2, k1, p), minus(c2, c1, p)
         busy = sum(us for _, us in kernels.values()) * 1e-6
         knot = [v for k, v in kernels.items()
                 if re.search(r"knot_(ip|pack)(_wide)?_kernel", k)]
         sim = [v for k, v in kernels.items() if "sim_ip_kernel" in k]
         top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
         (s1, w1), (s2, w2) = spanned(one), spanned(two)
-        span_s = {k: [v[0] - s1.get(k, (0.0, 0))[0],
-                      v[1] - s1.get(k, (0.0, 0))[1]] for k, v in s2.items()}
+        span_s = {k: [(v[0] - s1.get(k, (0.0, 0))[0]) / p,
+                      (v[1] - s1.get(k, (0.0, 0))[1]) / p]
+                  for k, v in s2.items()}
         steps_wall = None
         if args.steps:
-            steps_wall = timed(run(args.steps)) + capture_seconds()
+            steps_wall, _ = timed(run(args.steps))
+            steps_wall += (capture_seconds(graphs.stats)
+                           + capture_seconds(newton_graphs.stats))
         host = sum(calls.get(k, 0) for k in HOST_LAUNCHES)
         print(json.dumps({
             "path": name, "card": card, "lanes": 16,
             "steps": n_period, "steps_run": args.steps or None,
             "steps_wall_s": steps_wall,
-            "runs_wall_s": walls, "wall_s": wall, "device_busy_s": busy,
+            "runs_wall_s": walls, "period_walls_s": periods,
+            "wall_s": wall, "device_busy_s": busy,
             "device_busy_share_of_wall": busy / wall,
             "kernels_run": sum(n for n, _ in kernels.values()),
             "kernels_launched_from_host": host if calls else None,
@@ -202,8 +298,20 @@ def main():
             "sim_kernel_launches": sum(n for n, _ in sim),
             "sim_kernel_device_ms": sum(us for _, us in sim) * 1e-3,
             "top_kernels_ms": [[k[:120], us * 1e-3] for k, (_, us) in top],
-            "spans_wall_s": w2 - w1, "spans_s_entries": span_s,
-            "graph_captures_two_period_run": capture}),
+            "spans_wall_s": (w2 - w1) / p, "spans_s_entries": span_s,
+            "newton_replays": newton_period["replays"],
+            "newton_trip_replays": newton_period["trips"],
+            "kkt": (None if kkt is None else "riccati sweep" if structure
+                    else "ldl_solve"),
+            "kkt_n": (None if kkt is None or structure
+                      else kkt[1][0].shape[-1]),
+            "kkt_solves": kkt_solves,
+            "kkt_solve_device_ms_a_solve": kkt_ms,
+            "kkt_solve_kernels_a_solve": kkt_kernels,
+            "kkt_solve_device_s": (None if kkt is None else
+                                   kkt_ms * 1e-3 * kkt_solves),
+            "graph_captures_longer_run": capture,
+            "newton_captures_longer_run": n2}),
             flush=True)
 
 
