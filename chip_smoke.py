@@ -6,10 +6,13 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device — require CUDA, print the card's name and power limit, pin full
    float32 products;
-2. build — compile the port's two kernels from this checkout with nvcc,
-   both at once (one nvcc a source): the quadruped's sim step
-   (csrc/sim_ip.cu, float32 and float64) and the knot interior-point
-   kernel (csrc/knot_ip.cu), whose one build holds the ten instantiations,
+2. build — compile the port's four kernels from this checkout with nvcc,
+   all at once (one nvcc a source): the quadruped's sim step
+   (csrc/sim_ip.cu, float32 and float64), the Newton's two KKT solves
+   (csrc/structure_kkt.cu, the structure mode's whole structured solve, and
+   csrc/ldl.cu, the direct mode's unpivoted LDLᵀ; float32 and float64) and
+   the knot interior-point kernel (csrc/knot_ip.cu), whose one build holds
+   the ten instantiations,
    one for the dimensions of each model of the JAX package (ops/knot_ip.py's
    KNOT_IP_MODELS, a warp a problem: quadruped, 2D hopper, flamingo, 2D
    particle, pushbot, walled cartpole; KNOT_IP_WIDE_MODELS, a block a
@@ -183,9 +186,17 @@ Phases (any failure raises and the script exits non-zero):
    (``control/graphs.py``) against its eager route on one solve each of
    path A (structure mode), C (direct, n = 300) and D (direct, n = 480),
    and on a 20-step rollout of path A run both ways: bit for bit, the
-   knot kernel's launches through replays equal to the eager route's,
-   with each solve's replayed and eager time and its graphs' warm-up,
-   capture and pool memory (``newton_phase``).
+   knot kernel's and the KKT kernels' launches through replays equal to
+   the eager route's, with each solve's replayed and eager time and its
+   graphs' warm-up, capture and pool memory (``newton_phase``);
+22. kkt — the Newton's two KKT kernels against their plain versions on the
+   paths' own first KKTs (``kkt_phase``): the structured solve on A's and
+   the structure-mode hopper's, the LDLᵀ on B, C, D, E and F's (n = 100,
+   300, 480, 360, 340), float64 within 1e-9 of the plain version's largest
+   entry, float32 with a residual no worse than twice the plain version's,
+   the LDLᵀ's L and d equal to the plain version's bit for bit in both
+   types; their times against the plain version, one library call and the bound,
+   and ptxas's registers and spills.
 
 Every sim step of paths A, C and L is one launch of the sim kernel, and
 every sim step of every other path a replay of the sim solve's CUDA
@@ -194,20 +205,28 @@ graphs (in direct mode a start and a trip a Newton iteration): each
 counted run resets the counts and requires it, and the script prints them
 a path. The knot kernel's launches are counted through the replays, and
 include those of the Newton graphs' warm-ups (a set a rollout, once a
-policy).
+policy). So are the KKT kernels': each counted run requires path A's
+Newton solves to launch the structured-solve kernel a whole number of
+times a solve and no LDLᵀ, and every direct-mode path's to launch the
+LDLᵀ kernel once a trip replay (besides the warm-ups) and no structured
+solve.
 
 The spans and device traces of one control period of each MPC path are
 tools/torch_profile_paths.py's.
 
 JSON lines give the bound and the knot kernel's share of it at each timed
-shape; the line before the card's name is a JSON object with both kernels:
+shape, and the KKT kernels' at theirs; the line before the card's name is
+a JSON object with the four kernels:
 the knot kernel's comparison, launches (summed over the nine MPC paths,
 and by path, and those of the Newton graphs' warm-ups by path), times and bound at path A's N = 1008 and, in
 ``instantiations``, each of the ten with its dimensions, template, models,
 paths and launches and its time, plain time, bound and share at its path's
 N; the sim kernel's largest float64 |Δz|, launches on A, C and L, and its
 time, the graph replay's and its bound for a sim step of path A's 16
-lanes. The last line is ``{"ok": true, "device": {...}}``.
+lanes; the structured solve's largest float64 |Δ|, launches by path and
+its time, plain time, library time and bound at path A's KKT; the LDLᵀ's
+the same at path C's n = 300, and in ``shapes`` at each direct path's n.
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -235,6 +254,7 @@ from contactimplicitmpc_tpu_torch.control.linearized import \
     linearize_trajectory
 from contactimplicitmpc_tpu_torch.control.newton import NewtonOptions
 from contactimplicitmpc_tpu_torch.control.rollout import mpc_rollout
+from contactimplicitmpc_tpu_torch.control import structure_solver as ss
 from contactimplicitmpc_tpu_torch.control.objective import (
     tracking_objective, tracking_velocity_objective)
 from contactimplicitmpc_tpu_torch.control.policy import CIMPCOptions
@@ -264,7 +284,12 @@ from contactimplicitmpc_tpu_torch.ops import knot_ip as knot_mod
 from contactimplicitmpc_tpu_torch.ops.fixed_ip import linearized_ip_fixed
 from contactimplicitmpc_tpu_torch.ops.knot_ip import knot_ip
 from contactimplicitmpc_tpu_torch.ops import cuda_build
+from contactimplicitmpc_tpu_torch.ops import ldl as ldl_mod
 from contactimplicitmpc_tpu_torch.ops import sim_ip as sim_mod
+from contactimplicitmpc_tpu_torch.ops import structure_kkt as sk_mod
+from contactimplicitmpc_tpu_torch.ops.ldl import ldl
+from contactimplicitmpc_tpu_torch.ops.linsolve import ldl_solve
+from contactimplicitmpc_tpu_torch.ops.structure_kkt import structure_kkt
 from contactimplicitmpc_tpu_torch.parallel import (distributed, make_mesh,
                                                    make_sharded_mpc_rollouts,
                                                    monte_carlo_rollouts,
@@ -396,6 +421,7 @@ C_STEPS = 100
 GRAPHS = {}
 SIM_LAUNCHES = {}
 NEWTON = {}
+KKT = {}
 # the paths whose sim steps the sim kernel takes (the quadruped on flat
 # ground); every other path's are graph replays
 KERNEL_PATHS = ("path A", "path C", "phase L")
@@ -661,6 +687,7 @@ def counted(path, steps, fn, solves=0):
     torch.cuda.synchronize()
     knot_ip.launches = 0
     sim_mod.sim_ip.launches = 0
+    structure_kkt.launches = ldl.launches = 0
     graphs.reset_stats()
     newton_graphs.reset_stats()
     t0 = time.time()
@@ -670,6 +697,7 @@ def counted(path, steps, fn, solves=0):
     GRAPHS[path] = {"steps": steps, **graphs.stats}
     SIM_LAUNCHES[path] = sim_mod.sim_ip.launches
     NEWTON[path] = {"solves": solves, **newton_graphs.stats}
+    KKT[path] = check_kkt_launches(path, solves)
     kernel = path in KERNEL_PATHS
     want = (steps, 0) if kernel else (0, steps)
     got = (sim_mod.sim_ip.launches, graphs.stats["replays"])
@@ -686,9 +714,31 @@ def counted(path, steps, fn, solves=0):
               f"{newton_graphs.stats['capture_s']:.3f} s of capture, pool "
               f"{newton_graphs.stats['pool_bytes'] / 2 ** 20:.1f} MiB; knot "
               f"launches {knot_ip.launches}, of them "
-              f"{newton_graphs.stats['warmup_launches']} in the warm-ups",
-              flush=True)
+              f"{newton_graphs.stats['warmup_launches']} in the warm-ups; KKT "
+              f"kernel launches {json.dumps(KKT[path])}", flush=True)
     return out, knot_ip.launches, wall
+
+
+def check_kkt_launches(path, solves):
+    """The KKT kernels' launches of a counted run (``counted``): a
+    structure-mode path launches ``csrc/structure_kkt.cu`` a whole number
+    of times a Newton solve (once a masked trip) and no LDLᵀ; a direct-mode
+    path ``csrc/ldl.cu`` once a trip replay, besides its graphs' warm-ups,
+    and no structured solve; a path with no MPC neither."""
+    warm = newton_graphs.stats["warmup_kkt_launches"]
+    trips = newton_graphs.stats["trips"]
+    counts = {"structure_kkt": structure_kkt.launches, "ldl": ldl.launches,
+              "warmup": warm}
+    if not solves:
+        assert counts == {"structure_kkt": 0, "ldl": 0, "warmup": 0}, (
+            path, counts)
+    elif structure_kkt.launches:
+        replayed = structure_kkt.launches - warm
+        assert ldl.launches == trips == 0 and replayed > 0 and \
+            replayed % solves == 0, (path, counts, trips, solves)
+    else:
+        assert ldl.launches - warm == trips > 0, (path, counts, trips)
+    return counts
 
 
 def sweep_stats_direct(res, ref, n_sample):
@@ -1621,20 +1671,22 @@ def newton_phase(dev, tag):
     solve), path C (direct, n = 300) and path D (direct, n = 480), solved
     again by a fresh ``NewtonSolve``, with the replay's and the eager
     route's times (CUDA events), the set's warm-up and capture seconds and
-    pool memory, and the knot kernel's launches of one solve each way; then
-    a 20-step rollout of path A with its Newton solves run both ways
-    (``mock.patch``, as the graph phase does for B's sim steps). Every
-    output agrees bit for bit, and the launches through replays equal the
-    eager route's (the rollout's less its set's warm-up)."""
+    pool memory, and the knot kernel's and the KKT kernels' launches of one
+    solve each way; then a 20-step rollout of path A with its Newton solves
+    run both ways (``mock.patch``, as the graph phase does for B's sim
+    steps). Every output agrees bit for bit, and the launches through
+    replays equal the eager route's (the rollout's less its set's
+    warm-up)."""
     sys.path.insert(0, TESTS)
     import test_torch_newton_graphs_cuda as newton_tests
 
     def launches_of(fn):
+        """(knot kernel, KKT kernels) launches of ``fn()``."""
         torch.cuda.synchronize()
-        knot_ip.launches = 0
+        knot_ip.launches = structure_kkt.launches = ldl.launches = 0
         fn()
         torch.cuda.synchronize()
-        return knot_ip.launches
+        return knot_ip.launches, newton_graphs.kkt_launches()
 
     calls = {"A": lambda: newton_tests.path_call("A", dev),
              "C": lambda: newton_tests.path_call("C", dev),
@@ -1661,10 +1713,10 @@ def newton_phase(dev, tag):
               f"{eager:.3f} ms eager; warm-up {stats['warmup_s']:.3f} s, "
               f"capture and instantiation {stats['capture_s']:.3f} s, pool "
               f"{stats['pool_bytes'] / 2 ** 20:.1f} MiB; trip replays "
-              f"{stats['trips']}; knot launches replayed / eager {counts} "
-              f"{tag}", flush=True)
+              f"{stats['trips']}; knot and KKT kernel launches replayed / "
+              f"eager {counts} {tag}", flush=True)
         assert all(same), (name, same)
-        assert counts[0] == counts[1] > 0, (name, counts)
+        assert counts[0] == counts[1] and min(counts[0]) > 0, (name, counts)
 
     cfg = HotPathConfig()
     roll, ref, model, _, _ = make_quadruped_rollout(cfg, 20, torch.float32,
@@ -1672,13 +1724,14 @@ def newton_phase(dev, tag):
     q1s, v1s = conf_initial_states(model, ref)
     t0 = time.time()
     newton_graphs.reset_stats()
-    n_graphs = launches_of(lambda: roll(q1s, v1s))
+    n_graphs, kkt_graphs = launches_of(lambda: roll(q1s, v1s))
     warm = newton_graphs.stats["warmup_launches"]
+    kkt_warm = newton_graphs.stats["warmup_kkt_launches"]
     got = roll(q1s, v1s)
     torch.cuda.synchronize()
     t1 = time.time()
     with mock.patch.object(NewtonSolve, "_graphed", NewtonSolve._eager):
-        n_eager = launches_of(lambda: roll(q1s, v1s))
+        n_eager, kkt_eager = launches_of(lambda: roll(q1s, v1s))
         want = roll(q1s, v1s)
         torch.cuda.synchronize()
     t2 = time.time()
@@ -1686,11 +1739,14 @@ def newton_phase(dev, tag):
     print(f"newton: path A's rollout, 16 lanes x 20 steps, Newton replayed "
           f"= eager bit for bit: {all(same)}; knot launches {n_graphs} "
           f"replayed ({warm} of them the set's warm-up) against {n_eager} "
-          f"eager; two rollouts each way in {t1 - t0:.2f} s replayed "
+          f"eager, KKT kernel launches {kkt_graphs} ({kkt_warm}) against "
+          f"{kkt_eager}; two rollouts each way in {t1 - t0:.2f} s replayed "
           f"(captures included) against {t2 - t1:.2f} s eager {tag}",
           flush=True)
     assert all(same), same
     assert n_graphs - warm == n_eager > 0, (n_graphs, warm, n_eager)
+    assert kkt_graphs - kkt_warm == kkt_eager > 0, (kkt_graphs, kkt_warm,
+                                                    kkt_eager)
 
 
 def sim_kernel_phase(dev, tag):
@@ -1765,6 +1821,144 @@ def sim_kernel_phase(dev, tag):
             "bound_ms": bound, "bound_by": by}
 
 
+def dense_tridiag(yii, yij):
+    """The block-tridiagonal Y of ``compute_y_blocks``' blocks as a dense
+    (..., T·n, T·n) matrix."""
+    t, n = yii.shape[-3], yii.shape[-1]
+    dense = yii.new_zeros(yii.shape[:-3] + (t * n, t * n))
+    for i in range(t):
+        dense[..., i * n:(i + 1) * n, i * n:(i + 1) * n] = yii[..., i, :, :]
+        if i + 1 < t:
+            dense[..., i * n:(i + 1) * n, (i + 1) * n:(i + 2) * n] = \
+                yij[..., i, :, :]
+            dense[..., (i + 1) * n:(i + 2) * n, i * n:(i + 1) * n] = \
+                yij[..., i, :, :].mT
+    return dense
+
+
+def kkt_phase(dev, tag):
+    """Phase kkt: the Newton's two KKT kernels against their plain versions
+    on the paths' own first KKTs (tests/test_torch_kkt_cuda.py's
+    ``structure_case`` and ``ldl_case``: the first KKT a path's run solves,
+    recorded where its Newton solve calls the wrapper): the structured solve
+    (``csrc/structure_kkt.cu``) on path A's (16 lanes, nq 11, nu 8, H 10)
+    and the structure-mode hopper's (tests/test_torch_contracts_cuda.py's
+    ``"structure"``), the LDLᵀ (``csrc/ldl.cu``) on paths B, C, D, E and F's
+    (n = 100, 300, 480, 360, 340; 16 lanes). Float64 (the float32 KKT cast
+    up) within 1e-9 of the plain version's largest entry; float32 with a
+    relative residual no worse than twice the plain version's; the LDLᵀ's
+    factor (L, d) equal to the plain ``ldl_factor``'s bit for bit in both
+    types (what holds its float32 build on E, whose float32 KKT neither
+    version solves to any accuracy). Then each
+    kernel's time at the path's shape in float32 against its plain version
+    and one library call (CUDA events): for the structured solve
+    ``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve`` of the dense Y
+    (16, 198, 198) at A; for the LDLᵀ ``torch.linalg.ldl_factor_ex`` +
+    ``torch.linalg.ldl_solve`` (pivoted); its bound
+    (``ops/structure_kkt.py``/``ops/ldl.py::bound_ms``) and ptxas's
+    registers and spills. Returns the two kernels' entries for the JSON line
+    (the structured solve at A, the LDLᵀ at C's n = 300)."""
+    sys.path.insert(0, TESTS)
+    import test_torch_kkt_cuda as kkt_tests
+    for mod in (sk_mod, ldl_mod):
+        for r in cuda_build.resources(mod.build()):
+            print(f"kkt: ptxas, {r['kernel']}: {r.get('registers')} "
+                  f"registers, {r['spill_stores']} bytes of spill stores, "
+                  f"{r['spill_loads']} of spill loads a thread {tag}",
+                  flush=True)
+    rows, errs = [], {"structure_kkt": 0.0, "ldl": 0.0}
+    for path in ("A", "hopper_structure"):
+        dims, obj, xs, beta, h = kkt_tests.structure_case(path, dev)
+        obj64, xs64 = kkt_tests.cast(obj, xs, torch.float64)
+        got = structure_kkt(dims, obj64, *xs64, beta, h)
+        want = ss.structure_kkt_solve(dims, obj64, *xs64, beta, h)
+        rel = kkt_tests.rel(got, want)
+        gap = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        res = [kkt_tests.reduced_residual(dims, obj, xs, beta, h, fn(
+            dims, obj, *xs, beta, h)) for fn in (structure_kkt,
+                                                 ss.structure_kkt_solve)]
+        lanes = xs[0].shape[0]
+        print(f"kkt: structure_kkt on {path}'s first KKT ({lanes} lanes, nq "
+              f"{dims.nq}, nu {dims.nu}, H {h}): float64 largest |diff| "
+              f"{gap:.3g} ({rel:.3g} of the largest entry), float32 reduced "
+              f"residual {res[0]:.3g} against the plain version's "
+              f"{res[1]:.3g} {tag}", flush=True)
+        assert rel <= kkt_tests.F64_REL, (path, rel)
+        assert res[0] <= kkt_tests.F32_RESIDUAL_RATIO * res[1], (path, res)
+        errs["structure_kkt"] = max(errs["structure_kkt"], gap)
+        if path != "A":
+            continue
+        kernel = cuda_ms(lambda: structure_kkt(dims, obj, *xs, beta, h), 50,
+                         spin=True)
+        plain = cuda_ms(lambda: ss.structure_kkt_solve(dims, obj, *xs, beta,
+                                                       h), 5)
+        yii, yij = ss.compute_y_blocks(obj, *xs[:3], beta, h)
+        dense = dense_tridiag(yii, yij)
+        rhs = ss.structure_beta(obj, *xs, h).flatten(-2)[..., None]
+        library = cuda_ms(lambda: torch.cholesky_solve(
+            rhs, torch.linalg.cholesky_ex(dense)[0]), 20, spin=True)
+        bound, by = sk_mod.bound_ms(dims.nq, dims.nu, h, lanes, 4)
+        rows.append({"kernel": "structure_kkt", "path": path,
+                     "shape": [lanes, h, dims.nq, dims.nu],
+                     "dense_y": list(dense.shape), "ms": kernel,
+                     "plain_ms": plain, "library_ms": library,
+                     "bound_ms": bound, "bound_by": by})
+    for path in "BCDEF":
+        a, b = kkt_tests.ldl_case(path, dev)
+        a64, b64 = a.double(), b.double()
+        got, want = ldl(a64, b64), ldl_solve(a64, b64)
+        rel = kkt_tests.rel([got], [want])
+        gap = float((got - want).abs().max())
+
+        def residual(x):
+            r = (a64 @ x.double()[..., None])[..., 0] - b64
+            return float(torch.linalg.norm(r) / torch.linalg.norm(b64))
+
+        x32 = [ldl(a, b), ldl_solve(a, b)]
+        res = [residual(x) for x in x32]
+        fwd = [float(torch.linalg.norm(x.double() - want)
+                     / torch.linalg.norm(want)) for x in x32]
+        same = [kkt_tests.factors_equal(m, v) for m, v in ((a, b), (a64, b64))]
+        n, lanes = a.shape[-1], a.shape[0]
+        print(f"kkt: ldl on path {path}'s first KKT ({lanes} lanes, n = {n}): "
+              f"float64 largest |diff| {gap:.3g} ({rel:.3g} of the largest "
+              f"entry), float32 relative residual {res[0]:.3g} against the "
+              f"plain version's {res[1]:.3g} (error against float64's x "
+              f"{fwd[0]:.3g} and {fwd[1]:.3g}); L and d equal to the plain "
+              f"version's bit for bit in float32 and float64: {same} {tag}",
+              flush=True)
+        assert rel <= kkt_tests.F64_REL, (path, rel)
+        assert res[0] <= kkt_tests.F32_RESIDUAL_RATIO * res[1], (path, res)
+        assert all(same), (path, same)
+        errs["ldl"] = max(errs["ldl"], gap)
+        kernel = cuda_ms(lambda: ldl(a, b), 20, spin=True)
+        plain = cuda_ms(lambda: ldl_solve(a, b), 3)
+
+        def library_call():
+            fac, piv, _ = torch.linalg.ldl_factor_ex(a)
+            return torch.linalg.ldl_solve(fac, piv, b[..., None])
+
+        library = cuda_ms(library_call, 10, spin=True)
+        bound, by = ldl_mod.bound_ms(n, lanes, 4)
+        rows.append({"kernel": "ldl", "path": path, "shape": [lanes, n, n],
+                     "ms": kernel, "plain_ms": plain, "library_ms": library,
+                     "bound_ms": bound, "bound_by": by})
+    for r in rows:
+        print(f"kkt: {r['kernel']} at path {r['path']}'s {r['shape']}, "
+              f"float32: kernel {r['ms']:.4f} ms, plain version "
+              f"{r['plain_ms']:.3f} ms, library call {r['library_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['ms']:.2%} of it {tag}", flush=True)
+    print(json.dumps({"kkt_bound": rows, "card": tag[1:-1]}), flush=True)
+    entry = lambda name, path: dict(
+        {k: v for k, v in next(r for r in rows if r["kernel"] == name
+                               and r["path"] == path).items()
+         if k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        max_abs_err=errs[name])
+    return {"structure_kkt": entry("structure_kkt", "A"),
+            "ldl": entry("ldl", "C"), "rows": rows}
+
+
 def contract_path(dev, tag):
     """Phase L: tests/test_mpc_quadruped.py's contract at its full 1000 sim
     steps on the card, as tests/test_torch_contracts_cuda.py runs and holds
@@ -1800,11 +1994,11 @@ def main():
     dev = torch.device("cuda")
     t_start = time.time()
 
-    # ---- 2. build: one nvcc a source, both at once -------------------------
+    # ---- 2. build: one nvcc a source, all at once --------------------------
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda mod: mod.build(verbose=True),
-                             (knot_mod, sim_mod)))
+    kernels = (knot_mod, sim_mod, sk_mod, ldl_mod)
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        libs = list(pool.map(lambda mod: mod.build(verbose=True), kernels))
     print(f"build: {', '.join(libs)} in {time.time() - t0:.1f} s",
           flush=True)
 
@@ -1902,6 +2096,8 @@ def main():
     timed("newton", newton_phase, dev, tag)
     # ---- 20. the sim kernel against its plain version ------------------------
     sim_entry = timed("S", sim_kernel_phase, dev, tag)
+    # ---- 22. the KKT kernels against their plain versions --------------------
+    kkt_entry = timed("kkt", kkt_phase, dev, tag)
     print("sim graphs of each counted run (one replay a sim step but on "
           "A, C and L; sets captured, their warm-up and capture seconds and "
           "pool bytes): " + json.dumps(GRAPHS) + f" {tag}", flush=True)
@@ -1913,6 +2109,9 @@ def main():
           "seconds, pool bytes and warm-up knot launches): "
           + json.dumps({k: v for k, v in NEWTON.items() if v["solves"]})
           + f" {tag}", flush=True)
+    print("KKT kernel launches of each counted run (structure_kkt on A, ldl "
+          "on the direct paths; warm-up: the Newton graphs' warm-ups'): "
+          + json.dumps(KKT) + f" {tag}", flush=True)
     print("phase walls (s, each with its warm-up and checks): "
           + json.dumps({k: round(v, 2) for k, v in walls.items()})
           + f" {tag}", flush=True)
@@ -1947,6 +2146,8 @@ def main():
                 "launches": sum(launches[p] for p in paths)})
     main_q = phases["quadruped"][1][(1008, stages)]
     sim_launches = {p[-1]: SIM_LAUNCHES[p] for p in KERNEL_PATHS}
+    kkt_launches = {name: {p[-1]: KKT[p][name] for p in KKT if KKT[p][name]}
+                    for name in ("structure_kkt", "ldl")}
     print(json.dumps({"kernels": [{
         "name": "knot_ip", "route": "cuda",
         "source": "contactimplicitmpc_tpu_torch/csrc/knot_ip.cu",
@@ -1964,7 +2165,19 @@ def main():
         "source": "contactimplicitmpc_tpu_torch/csrc/sim_ip.cu",
         "replaces": "contactimplicitmpc_tpu/sim/interior_point.py:432",
         "launches": sum(sim_launches.values()), **sim_entry,
-        "library_ms": None, "launches_by_path": sim_launches}]}))
+        "library_ms": None, "launches_by_path": sim_launches}, {
+        "name": "structure_kkt", "route": "cuda",
+        "source": "contactimplicitmpc_tpu_torch/csrc/structure_kkt.cu",
+        "replaces": "contactimplicitmpc_tpu/control/structure_solver.py:202",
+        "launches": sum(kkt_launches["structure_kkt"].values()),
+        **kkt_entry["structure_kkt"],
+        "launches_by_path": kkt_launches["structure_kkt"]}, {
+        "name": "ldl", "route": "cuda",
+        "source": "contactimplicitmpc_tpu_torch/csrc/ldl.cu",
+        "replaces": "contactimplicitmpc_tpu/ops/linsolve.py:167",
+        "launches": sum(kkt_launches["ldl"].values()), **kkt_entry["ldl"],
+        "launches_by_path": kkt_launches["ldl"],
+        "shapes": [r for r in kkt_entry["rows"] if r["kernel"] == "ldl"]}]}))
     print(f"chip_smoke: every phase after the device check in "
           f"{time.time() - t_start:.1f} s {tag}", flush=True)
     torch.distributed.destroy_process_group()

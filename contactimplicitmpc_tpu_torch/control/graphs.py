@@ -5,10 +5,9 @@ structure mode's masked ``fori_loop``/``while_loop``
 (``contactimplicitmpc_tpu/control/structure_solver.py``) and the direct
 mode's ``while_loop`` (``control/newton.py``) with its LDLᵀ's
 ``fori_loop`` (``ops/linsolve.py``). PyTorch dispatches each op of those
-loops from Python: ≈ 3.3k kernels a structure-mode solve of the quadruped,
-and n dependent steps of the LDLᵀ a direct-mode trip (n = 100 to 480 on
-the chip paths). A CUDA graph captures them once and a replay launches
-them all with one call.
+loops from Python; the KKT solves inside them are one launch each of a
+hand-written kernel (``ops/structure_kkt.py``, ``ops/ldl.py``). A CUDA
+graph captures them once and a replay launches them all with one call.
 
 ``NewtonSolve(dims, mode, obj, horizon, ip_opts, opts, newton_mode)`` is
 made once a rollout (``mpc_rollout``) and once a policy
@@ -28,11 +27,11 @@ and the options, never from a failure (``route``):
 
   - structure mode: one graph of the whole solve (its masked trips read
     nothing: the warm start's sanitizing, the first residual, and each
-    trip's Riccati sweep, 7-trial line search and masked update),
+    trip's structured KKT solve, 7-trial line search and masked update),
     replayed once a call;
   - direct mode: a graph of ``start`` (the sanitizing, the pinning, the
     first implicit dynamics and residual) and one of a ``trip`` (the KKT's
-    assembly, its whole LDLᵀ and two triangular solves, the line search,
+    assembly, its LDLᵀ solve, the line search,
     the masked update), each writing whether a lane is still live;
     ``trip`` is replayed while one is, with one read of that flag a trip,
     as the eager loop reads it. With ``opts.fixed_newton_iters > 0`` one
@@ -52,10 +51,12 @@ options) is read by the graphs as it is, and the set keeps it alive. The
 outputs are cloned before the call returns. The capture is
 ``utils/cuda_graphs.py``'s: a warm-up of each piece on a side stream (the
 assembler's index tensors and the libraries' workspaces are made there),
-one memory pool a set, no cyclic collection during a capture, and the knot
-kernel's launches a replay makes counted in ``knot_ip.launches``. A
-capture that fails raises: there is no eager path for a solve the graphs
-take.
+one memory pool a set, no cyclic collection during a capture, and the
+launches a replay makes of the knot kernel and of the two KKT kernels
+(``csrc/structure_kkt.cu`` a structure-mode trip, ``csrc/ldl.cu`` a
+direct-mode trip) counted in ``knot_ip.launches``,
+``structure_kkt.launches`` and ``ldl.launches``. A capture that fails
+raises: there is no eager path for a solve the graphs take.
 """
 
 from __future__ import annotations
@@ -66,6 +67,8 @@ from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
 
 from ..dims import Dims
 from ..ops.knot_ip import knot_ip
+from ..ops.ldl import ldl
+from ..ops.structure_kkt import structure_kkt
 from ..sim.interior_point import IPOptions
 from ..utils.cuda_graphs import Captured
 from .newton import (NewtonAssembler, NewtonOptions, newton_program,
@@ -77,10 +80,19 @@ from .structure_solver import (structure_newton_solve,
 # smoke test and the span tool to reset and read: solves replayed, trip
 # graphs replayed (direct mode), solves on CUDA tensors run eagerly (the
 # adaptive knot solve), graph sets captured, their warm-up and capture
-# seconds and device bytes, and the knot kernel's launches their warm-ups
-# made (real launches, in ``knot_ip.launches`` too).
+# seconds and device bytes, and the knot kernel's and the KKT kernels'
+# launches their warm-ups made (real launches, in ``knot_ip.launches``,
+# ``structure_kkt.launches`` and ``ldl.launches`` too).
 stats = dict.fromkeys(("replays", "trips", "eager", "sets", "warmup_s",
-                       "capture_s", "pool_bytes", "warmup_launches"), 0)
+                       "capture_s", "pool_bytes", "warmup_launches",
+                       "warmup_kkt_launches"), 0)
+# the wrappers whose launches the graphs count through their replays
+COUNTERS = (knot_ip, structure_kkt, ldl)
+
+
+def kkt_launches() -> int:
+    """The two KKT kernels' launches, summed."""
+    return structure_kkt.launches + ldl.launches
 
 
 def reset_stats():
@@ -102,7 +114,7 @@ class _GraphSet:
         self.consts = (solve.obj, solve.sobj, solve.assembler)
         self.loop = not solve.structure and opts.fixed_newton_iters <= 0
         self.prog = None
-        launched = knot_ip.launches
+        launched, kkt_launched = knot_ip.launches, kkt_launches()
         if solve.structure:
             def whole():
                 return structure_newton_solve(
@@ -142,8 +154,9 @@ class _GraphSet:
                     prog.finish(prog.trip(prog.start()))
 
         self.graphs = Captured(pieces, warmup, leaves[0].device, stats,
-                               counters=(knot_ip,))
+                               counters=COUNTERS)
         stats["warmup_launches"] += knot_ip.launches - launched
+        stats["warmup_kkt_launches"] += kkt_launches() - kkt_launched
 
     def __call__(self, args):
         stats["replays"] += 1

@@ -6,7 +6,9 @@ PyTorch counterpart of ``contactimplicitmpc_tpu/control/newton.py``
 Problem: track a reference contact trajectory subject to the smooth
 implicit dynamics, with per-knot decision blocks ``[u, (γ, b,) q2]`` and
 dynamics multipliers ν. The KKT matrix of every lane is assembled densely
-through static index tensors and solved by one batched dense solve.
+through static index tensors and solved by one batched dense solve: the
+unpivoted LDLᵀ, on CUDA tensors one launch of the hand-written kernel
+``csrc/ldl.cu`` (``ops/ldl.py``), on CPU tensors ``ops/linsolve.py``'s.
 
 * residual (newton_residual.jl:113-138, 178-281): objective gradient +
   sensitivity-transposed dual terms + dynamics violation − ν
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from ..dims import Dims
-from ..ops.linsolve import ldl_solve
+from ..ops.ldl import ldl
 from ..sim.interior_point import IPOptions
 from ..utils.cuda_graphs import capturable_linalg
 from ..utils.spans import span
@@ -376,7 +378,7 @@ def newton_program(dims: Dims, mode: str, assembler: NewtonAssembler, obj,
 
     def kkt_solve(jac, r_c):
         if use_ldl:
-            return ldl_solve(jac, r_c)
+            return ldl(jac, r_c)
         # nothing is raised and nothing read back: a singular matrix gives
         # a non-finite step, which the guard in the body rejects
         with capturable_linalg(jac):

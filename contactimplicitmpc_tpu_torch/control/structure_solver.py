@@ -11,10 +11,13 @@ with per-stage states x_t = (qa_t, qb_t) = (q_{t}, q_{t+1}) and the
 constraints ν1_t: qa_{t+1} − qb_t = 0 and ν2_t: qb_{t+1} − z*(qa_t, qb_t,
 u_t) = 0. ``Y = C S⁻¹ Cᵀ`` is block tridiagonal with 2nq blocks, factored
 by a block Cholesky sweep and solved by one forward and one backward
-substitution, each a Python loop over the stages. On the card the sweep
-takes cuSOLVER's and cuBLAS's routines (``capturable_linalg``), eagerly
-as in the captured solve (``control/graphs.py`` replays the whole
-``structure_newton_solve`` as one CUDA graph).
+substitution, each a Python loop over the stages: ``structure_kkt_solve``,
+the plain version. On CUDA tensors ``structure_newton_solve`` solves the
+KKT through ``ops/structure_kkt.py``, one launch of the hand-written kernel
+``csrc/structure_kkt.cu`` a solve (``control/graphs.py`` replays the whole
+``structure_newton_solve`` as one CUDA graph); the plain version's sweep,
+where it runs on the card, takes cuSOLVER's and cuBLAS's routines
+(``capturable_linalg``).
 
 Every function takes an optional leading batch shape (lanes, and lanes ×
 line-search trials); the objective and the reference window broadcast.
@@ -32,6 +35,8 @@ import torch
 from ..dims import Dims
 from ..ops.knot_ip import knot_ip
 from ..ops.linsolve import mv
+from ..ops.structure_kkt import route as kkt_route
+from ..ops.structure_kkt import structure_kkt
 from ..sim.interior_point import IPOptions
 from ..utils.cuda_graphs import capturable_linalg
 from .implicit_dynamics import adaptive_knot_solve
@@ -96,9 +101,9 @@ def build_structure_objective(dims: Dims, q_weight, v_weight, u_weight,
                      torch.cat([qv.mT, qb], dim=2)], dim=1)
     big_inv = torch.linalg.inv(big)
     return StructureObjective(qa=qa, qb=qb, qv=qv, ra=ra,
-                              qat=big_inv[:, :nq, :nq],
-                              qbt=big_inv[:, nq:, nq:],
-                              qvt=big_inv[:, :nq, nq:],
+                              qat=big_inv[:, :nq, :nq].contiguous(),
+                              qbt=big_inv[:, nq:, nq:].contiguous(),
+                              qvt=big_inv[:, :nq, nq:].contiguous(),
                               rat=torch.linalg.inv(ra))
 
 
@@ -191,17 +196,12 @@ def block_tridiag_solve(lii, lji, beta):
     return torch.stack([xt[..., 0] for xt in x], dim=-2)
 
 
-def structure_kkt_solve(dims: Dims, obj: StructureObjective, aa, ab, ba,
-                        rlagu, rlagqa, rlagqb, rdyn1, rdyn2, beta,
-                        horizon):
-    """Full structured KKT solve: given residuals (1-based padded stacks),
-    return (Δu, Δqa, Δqb, Δν1, Δν2) for stages 1..H-1 (padded):
-    compute_β! (methods.jl:487-504), the tridiagonal solve, and
-    compute_Δz! (methods.jl:539-557)."""
+def structure_beta(obj: StructureObjective, aa, ab, ba, rlagu, rlagqa,
+                   rlagqb, rdyn1, rdyn2, horizon):
+    """β, the right-hand side of Y Δν = β (compute_β!, methods.jl:487-504),
+    (..., H-1, 2nq), from the residuals (1-based padded stacks)."""
     h = horizon
-    nq = dims.nq
     qat, qbt, qvt, rat = obj.qat, obj.qbt, obj.qvt, obj.rat
-
     qat_n, qbt_n, qvt_n = qat[2:h + 1], qbt[2:h + 1], qvt[2:h + 1]
     qat_c, qbt_c, qvt_c = qat[1:h], qbt[1:h], qvt[1:h]
     aa_c, ab_c, ba_c = aa[..., 1:h, :, :], ab[..., 1:h, :, :], ba[..., 1:h, :, :]
@@ -221,7 +221,24 @@ def structure_kkt_solve(dims: Dims, obj: StructureObjective, aa, ab, ba,
                        + mv(ab_c, mv(qbt_c, rqb_p))
                        + mv(aa_c, mv(qvt_c, rqb_p))
                        + mv(ab_c, mv(qvt_c, rqa_p))))
-    beta_n = torch.cat([beta1, beta2], dim=-1)  # (..., h-1, 2nq)
+    return torch.cat([beta1, beta2], dim=-1)
+
+
+def structure_kkt_solve(dims: Dims, obj: StructureObjective, aa, ab, ba,
+                        rlagu, rlagqa, rlagqb, rdyn1, rdyn2, beta,
+                        horizon):
+    """Full structured KKT solve: given residuals (1-based padded stacks),
+    return (Δu, Δqa, Δqb, Δν1, Δν2) for stages 1..H-1 (padded):
+    ``structure_beta``, the tridiagonal solve, and compute_Δz!
+    (methods.jl:539-557). The plain version of the kernel
+    ``csrc/structure_kkt.cu`` (``ops/structure_kkt.py``)."""
+    h = horizon
+    nq = dims.nq
+    qat_n, qbt_n, qvt_n = obj.qat[2:h + 1], obj.qbt[2:h + 1], obj.qvt[2:h + 1]
+    ba_c, rat_c = ba[..., 1:h, :, :], obj.rat[1:h]
+    ru, rqa, rqb = rlagu[..., 1:h, :], rlagqa[..., 1:h, :], rlagqb[..., 1:h, :]
+    beta_n = structure_beta(obj, aa, ab, ba, rlagu, rlagqa, rlagqb, rdyn1,
+                            rdyn2, h)
 
     yii, yij = compute_y_blocks(obj, aa, ab, ba, beta, h)
     with capturable_linalg(yii):
@@ -434,6 +451,10 @@ def structure_newton_solve(dims: Dims, sobj: StructureObjective,
     # residual only steers the accept decision, and the chosen candidate
     # is solved again at the full budget before it becomes the iterate
     cheap_trials = 0 < opts.trial_ip_iters < opts.fixed_ip_iters
+    # the KKT solve: CPU tensors take the plain version, CUDA tensors the
+    # kernel (or raise)
+    kkt_solve = (structure_kkt_solve if kkt_route(
+        q0.device, dtype, dims.nq, dims.nu, h) == "plain" else structure_kkt)
 
     def residual_of(st, alt_, fixed_iters=opts.fixed_ip_iters):
         d, aa, ab, ba, _ = _implicit_stages(
@@ -482,7 +503,7 @@ def structure_newton_solve(dims: Dims, sobj: StructureObjective,
             live = ~(r_norm / n_total < opts.r_tol)
         else:
             live = (it < opts.max_iter) & (r_norm / n_total >= opts.r_tol)
-        step = structure_kkt_solve(dims, sobj, *jacs, *parts, beta, h)
+        step = kkt_solve(dims, sobj, *jacs, *parts, beta, h)
         sts = apply_step(state, step)
         ps, js = residual_of(sts, alt_t, opts.trial_ip_iters if cheap_trials
                              else opts.fixed_ip_iters)

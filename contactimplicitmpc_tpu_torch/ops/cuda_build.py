@@ -7,17 +7,21 @@ headers it includes and the flags, and reused while they stay the same.
 Building needs the CUDA toolkit: ``nvcc`` on the path, or under
 ``$CUDA_HOME`` or ``/usr/local/cuda``. What ``-Xptxas -v`` says of each
 kernel is kept beside the library (``<library>.ptxas``); ``resources``
-reads it.
+reads it. ``bind_clocks`` and ``clocked`` read the phase clocks of the KKT
+kernels' clocked builds (``csrc/kkt_clocks.cuh``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
@@ -101,3 +105,31 @@ def resources(lib: str) -> list:
         if m and out and out[-1]["kernel"] == name and "registers" not in out[-1]:
             out[-1]["registers"] = int(m.group(1))
     return out
+
+
+def bind_clocks(lib) -> None:
+    """Declare the clocked build's ``kkt_clocks_*`` functions
+    (``csrc/kkt_clocks.cuh``) on the loaded library ``lib``."""
+    import ctypes
+    for name in ("kkt_clocks_slots", "kkt_clocks_reset", "kkt_clocks_read"):
+        getattr(lib, name).restype = ctypes.c_int
+    lib.kkt_clocks_read.argtypes = [ctypes.c_void_p]
+
+
+def clocked(lib, phases, device, launch) -> dict:
+    """One ``launch()`` of the clocked build ``lib`` on ``device``, its
+    slots cleared before: {phase: SM clock cycles} over ``phases``, the
+    source's phases in order."""
+    slots = lib.kkt_clocks_slots()
+    if slots < len(phases):
+        raise RuntimeError(f"the clocked build has {slots} slots for "
+                           f"{len(phases)} phases")
+    torch.cuda.synchronize(device)
+    if lib.kkt_clocks_reset() != 0:
+        raise RuntimeError("clearing the phase clocks failed")
+    launch()
+    torch.cuda.synchronize(device)
+    out = (ctypes.c_longlong * slots)()
+    if lib.kkt_clocks_read(out) != 0:
+        raise RuntimeError("reading the phase clocks failed")
+    return dict(zip(phases, map(int, out)))

@@ -37,21 +37,34 @@ the kernels that ran, the kernels launched from the host
 profiler records those calls) against the graph replays
 (``cudaGraphLaunch``) whose nodes ran the others, the knot kernel's
 launches (prologue and solve counted apart) and device time, the sim
-kernel's (``csrc/sim_ip.cu``, one a sim step of paths A and C), the five
-kernels with the most device time, the spans (seconds and entries by
+kernel's (``csrc/sim_ip.cu``, one a sim step of paths A and C), the KKT
+kernels' (``csrc/structure_kkt.cu`` on A, ``csrc/ldl.cu`` on the direct
+paths), the five kernels with the most device time, the spans (seconds and entries by
 name) with their wall, the Newton replays and trip replays
 (``control.graphs.stats``) and the longer run's sim and Newton captures
 (sets, warm-up and capture seconds, pool bytes). Inside a replayed Newton
 solve the ``kkt_solve`` and ``knot_ip`` spans do nothing (a capture cannot
 synchronise; they would time the graphs' warm-ups alone, and are left
-out), so the KKT solve's time comes from the device trace: the first KKT
-a path's warm-up run solves is kept (the direct mode's ``ldl_solve``, the
-structure mode's Riccati sweep, ``structure_kkt_solve``), captured alone
-and replayed under ``torch.profiler``, and its device time a solve times
-the period's KKT solves (direct mode one a trip replayed, structure mode
-one a masked trip) is ``kkt_solve_device_s``. Only the device's activity is traced; the
-profiler still slows the host, so the busy share is taken against the
+out), so the KKT solve's time is taken apart: the first KKT
+a path's warm-up run solves is kept where the Newton calls the kernel's
+wrapper (the direct mode's ``ops/ldl.py::ldl``, the structure mode's
+``ops/structure_kkt.py::structure_kkt``), captured alone and its replays
+timed with CUDA events, and its device time a solve times the period's
+KKT solves (direct mode one a trip replayed, structure mode one a masked
+trip) is ``kkt_solve_device_s``; the period's own trace gives the KKT
+kernels' launches and device time beside it. Only the device's activity is traced;
+the profiler still slows the host, so the busy share is taken against the
 unprofiled wall.
+
+With path A picked, a second line splits A's Newton replay by piece
+(``newton_split``): the second Newton solve of a two-period run of A
+(tests/test_torch_newton_graphs_cuda.py's ``path_call``) replayed under
+``torch.profiler``, its device time a solve split into the structured KKT
+kernel, the knot kernel, the residual assembly (``structure_residuals``,
+captured alone at each shape the solve calls it with, 16 lanes and 16 × 7
+trials, its replays timed with CUDA events, times its calls) and the rest (the masked update, the step's
+application, the line search's selection, the knot solves' glue and the
+inputs' copies).
 """
 
 import argparse
@@ -65,7 +78,8 @@ from unittest import mock
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 from contactimplicitmpc_tpu_torch.control import graphs as newton_graphs  # noqa: E402,E501
@@ -143,9 +157,10 @@ def timed(fn):
 
 def first_kkt(fn):
     """Run ``fn`` and keep the first KKT system its Newton solves outside a
-    capture, the direct mode's ``ldl_solve`` or the structure mode's
-    Riccati sweep (``structure_kkt_solve``): ((function, arguments) or
-    None, the KKT solves made outside a capture)."""
+    capture, through the direct mode's ``ldl`` or the structure mode's
+    ``structure_kkt`` (the kernels' wrappers, the route the paths take):
+    ((function, arguments) or None, the KKT solves made outside a
+    capture)."""
     kept, calls = [], [0]
 
     def keeper(module, name):
@@ -162,29 +177,27 @@ def first_kkt(fn):
 
         return mock.patch.object(module, name, keep)
 
-    with keeper(newton, "ldl_solve"), \
-            keeper(structure_solver, "structure_kkt_solve"):
+    with keeper(newton, "ldl"), keeper(structure_solver, "structure_kkt"):
         fn()
     return (kept[0] if kept else None), calls[0]
 
 
 def kkt_device_ms(kkt, reps=10):
-    """Device ms of one solve of ``kkt`` (``first_kkt``'s), captured alone
-    and replayed ``reps`` times under ``torch.profiler``, and its kernels a
-    solve."""
+    """Device ms of one call of ``kkt`` ((function, arguments), as
+    ``first_kkt`` keeps a KKT solve), captured alone and its replays timed
+    with CUDA events behind a device spin (``chip_smoke.cuda_ms``), and its
+    kernels a call from ``reps`` replays under ``torch.profiler`` (whose
+    trace of a one-kernel graph's replays has missed some of the
+    hand-written kernels' records, so it gives the count, not the time)."""
     stats = dict.fromkeys(("sets", "warmup_s", "capture_s", "pool_bytes"), 0)
     fn, args = kkt
     solve = lambda: fn(*args)
     device = next(a for a in args if isinstance(a, torch.Tensor)).device
     captured = Captured({"kkt": solve}, solve, device, stats)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            captured.replay("kkt")
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(e.self_device_time_total for e in kernels) * 1e-3 / reps,
-            sum(e.count for e in kernels) / reps)
+    replay = lambda: captured.replay("kkt")
+    ms = chip_smoke.cuda_ms(replay, reps, spin=True)
+    kernels = device_kernels(replay, reps)
+    return ms, sum(n for n, _ in kernels.values())
 
 
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -204,6 +217,54 @@ def profiled(fn):
     calls = {e.key: e.count for e in events
              if e.key in HOST_LAUNCHES + GRAPH_LAUNCHES}
     return kernels, calls
+
+
+def device_kernels(fn, reps):
+    """{kernel: (count, device ms)} a call of ``fn``, over ``reps`` calls
+    under ``torch.profiler``."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count / reps, e.self_device_time_total * 1e-3 / reps)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def newton_split(dev, reps=10):
+    """Path A's Newton replay split by piece (the module's docstring):
+    device ms a solve."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_newton_graphs_cuda as newton_tests
+    solve, args = newton_tests.path_call("A", dev)
+    solve(*args)                                    # captures
+    kernels = device_kernels(lambda: solve(*args), reps)
+    by = lambda pattern: sum(ms for k, (_, ms) in kernels.items()
+                             if re.search(pattern, k))
+    total = sum(ms for _, ms in kernels.values())
+    kkt, knot = by(r"structure_kkt_kernel"), by(r"knot_(ip|pack)")
+    calls, original = {}, structure_solver.structure_residuals
+
+    def keep(*a):
+        lead = tuple(a[2].qa.shape[:-2])            # the state's batch
+        calls.setdefault(lead, [a, 0])[1] += 1
+        return original(*a)
+
+    with mock.patch.object(structure_solver, "structure_residuals", keep):
+        solve._eager(*args)
+    shapes, residual = {}, 0.0
+    for lead, (a, count) in calls.items():
+        ms, n = kkt_device_ms((original, a), reps)
+        shapes["x".join(map(str, lead))] = {"calls": count, "device_ms": ms,
+                                            "kernels": n}
+        residual += ms * count
+    return {"newton_split": {
+        "path": "A quadruped structure", "card": describe(dev),
+        "replay_device_ms": total,
+        "replay_kernels": sum(n for n, _ in kernels.values()),
+        "structure_kkt_kernel_ms": kkt, "knot_kernel_ms": knot,
+        "residual_assembly_ms": residual, "residual_assembly": shapes,
+        "rest_ms": total - kkt - knot - residual}}
 
 
 def minus(two, one, periods):
@@ -260,7 +321,7 @@ def main():
         wall = sorted(periods)[len(periods) // 2]
         newton_period = {k: (n2[k] - n1[k]) / p for k in ("replays", "trips")}
         kkt_ms, kkt_kernels = kkt_device_ms(kkt) if kkt else (None, None)
-        structure = kkt is not None and kkt[0] is not newton.ldl_solve
+        structure = kkt is not None and kkt[0] is not newton.ldl
         # a direct-mode trip solves one KKT; a structure-mode solve as many
         # as its masked trips, which the warm-up's eager solve counted
         kkt_solves = (newton_period["replays"] * kkt_calls if structure
@@ -271,6 +332,8 @@ def main():
         knot = [v for k, v in kernels.items()
                 if re.search(r"knot_(ip|pack)(_wide)?_kernel", k)]
         sim = [v for k, v in kernels.items() if "sim_ip_kernel" in k]
+        kkt_k = [v for k, v in kernels.items()
+                 if re.search(r"structure_kkt_kernel|ldl_kernel", k)]
         top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
         (s1, w1), (s2, w2) = spanned(one), spanned(two)
         span_s = {k: [(v[0] - s1.get(k, (0.0, 0))[0]) / p,
@@ -297,12 +360,14 @@ def main():
             "knot_kernel_device_ms": sum(us for _, us in knot) * 1e-3,
             "sim_kernel_launches": sum(n for n, _ in sim),
             "sim_kernel_device_ms": sum(us for _, us in sim) * 1e-3,
+            "kkt_kernel_launches": sum(n for n, _ in kkt_k),
+            "kkt_kernel_device_ms": sum(us for _, us in kkt_k) * 1e-3,
             "top_kernels_ms": [[k[:120], us * 1e-3] for k, (_, us) in top],
             "spans_wall_s": (w2 - w1) / p, "spans_s_entries": span_s,
             "newton_replays": newton_period["replays"],
             "newton_trip_replays": newton_period["trips"],
-            "kkt": (None if kkt is None else "riccati sweep" if structure
-                    else "ldl_solve"),
+            "kkt": (None if kkt is None else "structure_kkt" if structure
+                    else "ldl"),
             "kkt_n": (None if kkt is None or structure
                       else kkt[1][0].shape[-1]),
             "kkt_solves": kkt_solves,
@@ -313,6 +378,8 @@ def main():
             "graph_captures_longer_run": capture,
             "newton_captures_longer_run": n2}),
             flush=True)
+        if letter == "A":
+            print(json.dumps(newton_split(dev)), flush=True)
 
 
 if __name__ == "__main__":
