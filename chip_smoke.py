@@ -196,7 +196,9 @@ Phases (any failure raises and the script exits non-zero):
    entry, float32 with a residual no worse than twice the plain version's,
    the LDLᵀ's L and d equal to the plain version's bit for bit in both
    types; their times against the plain version, one library call and the bound,
-   and ptxas's registers and spills.
+   ptxas's registers and spills, the LDLᵀ's cluster geometry (a cluster of 4,
+   8 or 16 CTAs a matrix by the source's rule) with how many such clusters
+   the card runs at once, and the structured solve's chunk of stages.
 
 Every sim step of paths A, C and L is one launch of the sim kernel, and
 every sim step of every other path a replay of the sim solve's CUDA
@@ -1855,9 +1857,13 @@ def kkt_phase(dev, tag):
     ``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve`` of the dense Y
     (16, 198, 198) at A; for the LDLᵀ ``torch.linalg.ldl_factor_ex`` +
     ``torch.linalg.ldl_solve`` (pivoted); its bound
-    (``ops/structure_kkt.py``/``ops/ldl.py::bound_ms``) and ptxas's
-    registers and spills. Returns the two kernels' entries for the JSON line
-    (the structured solve at A, the LDLᵀ at C's n = 300)."""
+    (``ops/structure_kkt.py``/``ops/ldl.py::bound_ms``), ptxas's registers
+    and spills, the LDLᵀ's cluster geometry at every path's n in both types
+    with how many such clusters the card runs at once
+    (``cudaOccupancyMaxActiveClusters``), and the structured solve's chunk
+    of stages at A's and the hopper's shapes. Returns the two kernels'
+    entries for the JSON line (the structured solve at A, the LDLᵀ at C's
+    n = 300)."""
     sys.path.insert(0, TESTS)
     import test_torch_kkt_cuda as kkt_tests
     for mod in (sk_mod, ldl_mod):
@@ -1866,6 +1872,21 @@ def kkt_phase(dev, tag):
                   f"registers, {r['spill_stores']} bytes of spill stores, "
                   f"{r['spill_loads']} of spill loads a thread {tag}",
                   flush=True)
+    for n in (100, 300, 340, 360, 480):
+        for elem in (4, 8):
+            g = ldl_mod.geometry(n, elem)
+            print(f"kkt: ldl geometry at n = {n}, {elem}-byte values: "
+                  f"clusters of {g['cluster']} CTAs of {g['threads']} "
+                  f"threads, {g['rows']} rows and {g['shared_bytes']} shared "
+                  f"bytes a CTA; the card runs "
+                  f"{ldl_mod.max_active_clusters(n, elem)} such clusters at "
+                  f"once {tag}", flush=True)
+    for nq, nu in ((11, 8), (4, 2)):
+        for elem in (4, 8):
+            print(f"kkt: structure_kkt at nq {nq}, nu {nu}, H 10, {elem}-byte "
+                  f"values: chunks of {sk_mod.chunk_stages(nq, nu, 10, elem)} "
+                  f"of 9 stages, {sk_mod.shared_bytes(nq, nu, 10, elem)} "
+                  f"shared bytes a block {tag}", flush=True)
     rows, errs = [], {"structure_kkt": 0.0, "ldl": 0.0}
     for path in ("A", "hopper_structure"):
         dims, obj, xs, beta, h = kkt_tests.structure_case(path, dev)

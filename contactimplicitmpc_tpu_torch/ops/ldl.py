@@ -7,11 +7,17 @@ side each, ``b`` (..., n): the unpivoted LDLᵀ with its pivots floored at the
 dtype's ``tiny`` (or at ``boost``), then the two triangular solves. The
 route is a pure function of the tensors' device, type and n (``route``):
 CPU tensors take the plain version, ``ldl_solve`` itself; float32 and
-float64 CUDA tensors of an n the source holds (``MAX_N``, and a block's
-shared memory within an H100's 227 KB) launch the kernel, a block a matrix;
-anything else on the card raises. There is no fallback. The kernel's factor
-is the plain version's, operation for operation (``csrc/ldl.cu``), so L and
-d agree bit for bit and the solution to rounding.
+float64 CUDA tensors of an n the source holds (``MAX_N``) launch the
+kernel, a thread-block cluster a matrix; anything else on the card raises.
+There is no fallback. The kernel's factor is the plain version's,
+operation for operation (``csrc/ldl.cu``), so L and d agree bit for bit and
+the solution to rounding.
+
+The cluster's geometry follows the source's rule (``cluster_size``,
+``shared_bytes``): ``CLUSTER`` CTAs of ``THREADS`` threads where their
+shared memory holds the matrix's lower triangle beside a panel copy, else
+twice or four times as many (float64 past n = 288 and past n = 384);
+``max_active_clusters`` asks the card how many such clusters run at once.
 
 The control/newton.py trip calls it for the KKT of every direct-mode Newton
 iteration (``use_ldl``), inside the trip's CUDA graph: it launches on the
@@ -40,8 +46,9 @@ from .linsolve import ldl_solve
 
 SOURCE = os.path.join(CSRC, "ldl.cu")
 CLOCKS_HEADER = os.path.join(CSRC, "kkt_clocks.cuh")
-# the source's kThreads, kPanel and kMaxN, and an H100 block's shared bytes
-THREADS, PANEL, MAX_N = 512, 32, 768
+# the source's kThreads, kPanel, kCluster, kTileCols, kLd and kMaxN, and an
+# H100 CTA's shared bytes
+THREADS, PANEL, CLUSTER, TILE_COLS, LD, MAX_N = 512, 32, 4, 8, 33, 480
 SHARED_LIMIT = 227 * 1024
 DTYPES = (torch.float32, torch.float64)
 
@@ -50,39 +57,98 @@ _LIBS = {}   # phase_clocks: the loaded library
 
 def build(verbose: bool = False, phase_clocks: bool = False) -> str:
     """Compile ``csrc/ldl.cu`` into ``build/`` (``cuda_build.build``),
-    with ``phase_clocks`` the build whose block 0 clocks its phases
-    (``-DKKT_PHASE_CLOCKS``); returns the library's path."""
+    with ``phase_clocks`` the build whose CTA 0 of cluster 0 clocks its
+    phases (``-DKKT_PHASE_CLOCKS``); returns the library's path."""
     return cuda_build.build(SOURCE, verbose, deps=(CLOCKS_HEADER,),
                             defines=("-DKKT_PHASE_CLOCKS",) if phase_clocks
                             else ())
 
 
+def rows_a_cta(n: int, cluster: int) -> int:
+    """A CTA's rows of an n × n matrix on a cluster of ``cluster`` CTAs
+    (row i belongs to CTA i mod cluster)."""
+    return (n + cluster - 1) // cluster
+
+
+def shared_values(n: int, cluster: int) -> int:
+    """A CTA's values in shared memory (the source's ``shared_values``): the
+    panel copy (``PANEL`` columns of n rows, in runs of ``TILE_COLS``), its
+    own rows' panel columns (which the other CTAs pull, in 16-byte runs),
+    its rows' lower-triangle entries and right-hand sides (row li in
+    cluster · li + cluster + 4 values, 16-byte aligned), the diagonal block
+    pushed in and factored, the diagonal blocks it keeps for the backward
+    substitution, d, x and the backward's partial sums."""
+    rows = rows_a_cta(n, cluster)
+    panel_ld = (n + TILE_COLS - 1) // TILE_COLS * TILE_COLS
+    mine_ld = (rows + 3) // 4 * 4
+    kept = ((n + PANEL - 1) // PANEL + cluster - 1) // cluster
+    return (PANEL * panel_ld + PANEL * mine_ld + rows * (cluster + 4)
+            + cluster * rows * (rows - 1) // 2 + 2 * PANEL * LD
+            + kept * PANEL * LD + 3 * n)
+
+
+def cluster_size(n: int, elem_bytes: int) -> int:
+    """The source's rule (``cluster_size``): the smallest of ``CLUSTER``,
+    2 ``CLUSTER`` and 4 ``CLUSTER`` CTAs a matrix whose shared memory holds
+    it."""
+    for cluster in (CLUSTER, 2 * CLUSTER):
+        if elem_bytes * shared_values(cluster=cluster, n=n) <= SHARED_LIMIT:
+            return cluster
+    return 4 * CLUSTER
+
+
 def shared_bytes(n: int, elem_bytes: int) -> int:
-    """A block's shared bytes for an n × n matrix (the source's
-    ``shared_values``): the panel's n rows of ``PANEL + 1`` values, d and
-    the right-hand side."""
-    return elem_bytes * (n * (PANEL + 1) + 2 * n)
+    """A CTA's shared bytes for an n × n matrix, on the cluster
+    ``cluster_size`` picks."""
+    return elem_bytes * shared_values(n, cluster_size(n, elem_bytes))
 
 
 def _load(phase_clocks: bool = False):
     if phase_clocks not in _LIBS:
         lib = ctypes.CDLL(build(phase_clocks=phase_clocks))
         ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.ldl_shared_bytes.restype = i32
-        lib.ldl_shared_bytes.argtypes = [i32, i32]
+        lib.ldl_geometry.restype = i32
+        lib.ldl_geometry.argtypes = [i32, i32, ptr]
+        lib.ldl_max_active_clusters.restype = i32
+        lib.ldl_max_active_clusters.argtypes = [i32, i32, ptr]
         lib.ldl_launch.restype = i32
         lib.ldl_launch.argtypes = [i32] + [ptr] * 4 + [i32, i32, f64, ptr]
-        for n in (1, 300, MAX_N):
+        for n in (1, 100, 300, MAX_N):
             for elem in (4, 8):
-                if lib.ldl_shared_bytes(elem, n) != shared_bytes(n, elem):
-                    raise RuntimeError(f"ldl: the kernel takes "
-                                       f"{lib.ldl_shared_bytes(elem, n)} shared "
-                                       f"bytes at n = {n}, the wrapper "
-                                       f"{shared_bytes(n, elem)}")
+                got = geometry(n, elem, lib)
+                want = {"cluster": cluster_size(n, elem),
+                        "shared_bytes": shared_bytes(n, elem),
+                        "threads": THREADS,
+                        "rows": rows_a_cta(n, cluster_size(n, elem))}
+                if got != want:
+                    raise RuntimeError(f"ldl: the kernel's geometry at n = {n}, "
+                                       f"{elem}-byte values is {got}, the "
+                                       f"wrapper's {want}")
         if phase_clocks:
             cuda_build.bind_clocks(lib)
         _LIBS[phase_clocks] = lib
     return _LIBS[phase_clocks]
+
+
+def geometry(n: int, elem_bytes: int, lib=None) -> dict:
+    """The kernel's own geometry for an n × n matrix (``ldl_geometry``):
+    the cluster's CTAs, a CTA's shared bytes, threads and rows."""
+    lib = lib or _load()
+    out = (ctypes.c_int * 4)()
+    if lib.ldl_geometry(elem_bytes, n, out) != 0:
+        raise ValueError(f"ldl: n = {n} is outside what the kernel holds")
+    return dict(zip(("cluster", "shared_bytes", "threads", "rows"), out))
+
+
+def max_active_clusters(n: int, elem_bytes: int) -> int:
+    """How many clusters of the geometry for an n × n matrix the card runs
+    at once (``cudaOccupancyMaxActiveClusters``); on the GPU."""
+    out = ctypes.c_int(0)
+    err = _load().ldl_max_active_clusters(elem_bytes, n, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"ldl: cudaOccupancyMaxActiveClusters failed: "
+                           f"error {err}")
+    return out.value
 
 
 def route(device, dtype, n: int) -> str:
@@ -150,15 +216,16 @@ def ldl_factors(a, b, boost: float = 0.0):
     return x, torch.tril(work, -1) + eye, work.diagonal(dim1=-2, dim2=-1)
 
 
-# the clocked build's phases, in the source's order (``csrc/ldl.cu::Phase``)
-PHASES = ("trailing_and_load", "panel_factor", "write_back", "forward",
-          "backward")
+# the clocked build's phases, in the source's order (``csrc/ldl.cu::Phase``);
+# a panel's are summed over the panels
+PHASES = ("load", "diag_factor", "row_elimination", "panel_exchange",
+          "trailing_update", "diag_push", "write_out", "solves")
 
 
 def phase_clocks(a, b, boost: float = 0.0) -> dict:
     """One launch of the clocked build (``-DKKT_PHASE_CLOCKS``) on CUDA
-    tensors: the SM clock cycles thread 0 of matrix 0 spent in each of
-    ``PHASES``."""
+    tensors: the SM clock cycles thread 0 of CTA 0 of cluster 0 spent in
+    each of ``PHASES``."""
     if route(a.device, a.dtype, a.shape[-1]) != "cuda":
         raise ValueError("ldl: phase clocks run on CUDA tensors")
     lib = _load(phase_clocks=True)

@@ -14,10 +14,13 @@ The route is a pure function of the tensors' device, type and (nq, nu, H)
 (``route``): CPU tensors take the plain version, ``structure_kkt_solve``,
 which ``control/structure_solver.py`` owns and calls itself (the wrapper
 raises on them); float32 and float64 CUDA tensors of dimensions the source
-holds (2 nq ≤ ``MAX_N``, nu ≤ ``MAX_NU``, H ≥ ``MIN_H`` and a block's
-shared memory, ``shared_bytes``, within an H100's 227 KB: every model of
-the JAX package at the horizons its examples run) launch the kernel;
-anything else on the card raises. There is no fallback.
+holds (2 nq ≤ ``MAX_N``, nu ≤ ``MAX_NU``, H ≥ ``MIN_H`` and at least one
+stage a chunk within an H100 block's 227 KB of shared memory: every model
+of the JAX package at the horizons its examples run) launch the kernel;
+anything else on the card raises. There is no fallback. The kernel takes
+its stages in chunks of ``chunk_stages`` (the source's rule: every stage
+where they fit, as at path A's shape in both types, else the most that
+fit), a prologue a chunk.
 
 ``control/structure_solver.py::structure_newton_solve`` calls it on CUDA
 tensors once a masked Newton trip, inside the solve's CUDA graph
@@ -68,15 +71,45 @@ def build(verbose: bool = False, phase_clocks: bool = False) -> str:
                             else ())
 
 
-def shared_bytes(nq: int, nu: int, h: int, elem_bytes: int) -> int:
-    """A block's shared bytes (the source's ``shared_values``): two stages'
-    inputs (the next copied in while one computes), W = [aa ab] Q and V =
-    ba R⁻¹, the four 2nq × 2nq blocks (M, L, Lⱼᵢ and the stage before's),
-    the stage's vectors, pivot reciprocals and β's inner products, and y,
-    Δν, eₐ, e_b and Δu's inner vector over the H − 1 stages."""
+def _padded(count: int) -> int:
+    return (count + 7) // 4 * 4
+
+
+def shared_values(nq: int, nu: int, ns: int, s: int) -> int:
+    """A block's values for ns = H − 1 stages in chunks of s (the source's
+    ``shared_values``): a chunk's inputs, each in a room of whole 16-byte
+    runs with the source's alignment (aa, ab, qat, qbt, qvt over s + 1
+    knots, rat, ba, ru, rdyn1, rdyn2 over s, rlagqa, rlagqb over s + 1); a
+    chunk stage's Yii then L and Yij then Lji (rows of 2nq + 1), W, V and
+    β's products; the Cholesky's columns (32 × 32), every stage's y,
+    x and pivot reciprocals, the chunk
+    before's last Lⱼᵢ, the recovery's eₐ, e_b and Δu's inner vector, and
+    two ints (the Cholesky's progress, a stage's non-positive pivot)."""
+    q2 = nq * nq
+    inputs = (5 * _padded((s + 1) * q2) + _padded(s * nu * nu)
+              + _padded(s * nq * nu) + _padded(s * nu) + 2 * _padded(s * nq)
+              + 2 * _padded((s + 1) * nq))
+    stage = 4 * nq * (2 * nq + 1) + 2 * q2 + nq * nu + nu + 4 * nq
+    fixed = (32 * 32 + 6 * ns * nq + 2 * nq * (2 * nq + 1) + ns * (2 * nq + nu)
+             + 2)
+    return inputs + s * stage + fixed
+
+
+def chunk_stages(nq: int, nu: int, h: int, elem_bytes: int) -> int:
+    """The source's rule (``chunk_stages``): a chunk takes every one of the
+    H − 1 stages where they fit a block's shared memory, else the most that
+    fit; 0 where one does not."""
     ns = h - 1
-    return elem_bytes * (38 * nq * nq + 3 * nq * nu + 2 * nu * nu + 3 * nu
-                         + 31 * nq + 6 * ns * nq + ns * nu)
+    s = ns
+    while s > 0 and elem_bytes * shared_values(nq, nu, ns, s) > SHARED_LIMIT:
+        s -= 1
+    return s
+
+
+def shared_bytes(nq: int, nu: int, h: int, elem_bytes: int) -> int:
+    """A block's shared bytes, in chunks of ``chunk_stages``."""
+    return elem_bytes * shared_values(nq, nu, h - 1,
+                                      chunk_stages(nq, nu, h, elem_bytes))
 
 
 def _load(phase_clocks: bool = False):
@@ -85,17 +118,22 @@ def _load(phase_clocks: bool = False):
         ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.structure_kkt_shared_bytes.restype = i32
         lib.structure_kkt_shared_bytes.argtypes = [i32] * 4
+        lib.structure_kkt_chunk_stages.restype = i32
+        lib.structure_kkt_chunk_stages.argtypes = [i32] * 4
         lib.structure_kkt_launch.restype = i32
         lib.structure_kkt_launch.argtypes = [i32, ptr, ptr] + [i32] * 4 + [
             f64, ptr]
         for nq, nu, h in ((11, 8, 10), (18, 12, 20), (2, 1, 3)):
             for elem in (4, 8):
-                got = lib.structure_kkt_shared_bytes(elem, nq, nu, h)
-                if got != shared_bytes(nq, nu, h, elem):
+                got = (lib.structure_kkt_chunk_stages(elem, nq, nu, h),
+                       lib.structure_kkt_shared_bytes(elem, nq, nu, h))
+                want = (chunk_stages(nq, nu, h, elem),
+                        shared_bytes(nq, nu, h, elem))
+                if got != want:
                     raise RuntimeError(
-                        f"structure_kkt: the kernel takes {got} shared bytes "
-                        f"at (nq, nu, H) = {(nq, nu, h)}, the wrapper "
-                        f"{shared_bytes(nq, nu, h, elem)}")
+                        f"structure_kkt: the kernel takes chunks of {got[0]} "
+                        f"stages and {got[1]} shared bytes at (nq, nu, H) = "
+                        f"{(nq, nu, h)}, the wrapper {want}")
         if phase_clocks:
             cuda_build.bind_clocks(lib)
         _LIBS[phase_clocks] = lib
@@ -112,7 +150,7 @@ def route(device, dtype, nq: int, nu: int, h: int) -> str:
                          f"float64, got {dtype}")
     elem = torch.empty((), dtype=dtype).element_size()
     if not (1 <= nq and 2 * nq <= MAX_N and 1 <= nu <= MAX_NU and h >= MIN_H
-            and shared_bytes(nq, nu, h, elem) <= SHARED_LIMIT):
+            and chunk_stages(nq, nu, h, elem) >= 1):
         raise ValueError(f"structure_kkt: (nq, nu, H) = {(nq, nu, h)} is "
                          f"outside what the kernel holds (2 nq ≤ {MAX_N}, "
                          f"nu ≤ {MAX_NU}, H ≥ {MIN_H}, {SHARED_LIMIT} shared "
@@ -194,10 +232,11 @@ def structure_kkt_factors(dims: Dims, obj, aa, ab, ba, rlagu, rlagqa, rlagqb,
 
 
 # the clocked build's phases, in the source's order
-# (``csrc/structure_kkt.cu::Phase``); a stage's are summed over the stages
-PHASES = ("first_inputs", "next_inputs_issued", "w", "v", "yij",
-          "beta_products", "lji_out_and_barrier", "m_and_beta", "cholesky",
-          "factor_out", "lji_and_forward", "backward", "recovery")
+# (``csrc/structure_kkt.cu::Phase``): a chunk's inputs and prologue, then a
+# stage's chain (summed over the stages), the chunks' last factors out, the
+# backward substitution and the recovery
+PHASES = ("inputs", "prologue", "m", "cholesky", "lji_and_forward",
+          "factor_out", "backward", "recovery")
 
 
 def phase_clocks(dims: Dims, obj, aa, ab, ba, rlagu, rlagqa, rlagqb, rdyn1,

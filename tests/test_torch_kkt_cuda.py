@@ -24,7 +24,12 @@ outside a capture) and the run stopped there:
   in its lower triangle (zero above it) where the plain sweep's is, and a
   non-finite step; a NaN Jacobian in one lane leaves the others finite;
 - path A's and C's Newton replays equal eager bit for bit, with the KKT
-  kernels' launches through replays equal to eager's.
+  kernels' launches through replays equal to eager's;
+- the structured solve's chunked prologue (the centroidal family's nq 18,
+  nu 12 at H = 20: every stage fits in neither type, chunks of
+  ``chunk_stages``), on seeded stage inputs: float64 within 1e-9 of the
+  plain version's largest entry, float32 residual no worse than twice the
+  plain version's; no chip path runs it.
 
 The tests are marked ``cuda`` and skip where CUDA is absent. This file
 imports neither JAX nor the JAX package:
@@ -219,6 +224,38 @@ def factors_equal(a, b):
     _, l, d = ldl_factors(a, b)
     want_l, want_d = ldl_factor(a)
     return torch.equal(l, want_l) and torch.equal(d, want_d)
+
+
+@pytest.mark.cuda
+def test_chunked_structure_kernel_matches_plain(card):
+    import numpy as np
+    from contactimplicitmpc_tpu_torch.dims import Dims
+    from contactimplicitmpc_tpu_torch.ops import structure_kkt as sk_mod
+    nq, nu, h = 18, 12, 20
+    rng = np.random.default_rng(18)
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float64,
+                                  device=card)
+    dims = Dims(nq=nq, nu=nu, nw=0, nc=1, nf=2, ne=2)
+    obj = ss.build_structure_objective(
+        dims, t(0.5 + rng.random((h + 1, nq))),
+        t(0.1 + 0.1 * rng.random((h + 1, nq))),
+        t(0.5 + rng.random((h + 1, nu))), 1e-6, h)
+    shapes = [(h, nq, nq), (h, nq, nq), (h, nq, nu), (h, nu), (h, nq),
+              (h, nq), (h, nq), (h, nq)]
+    xs = [t(rng.standard_normal((4,) + s) * (0.3 if len(s) == 3 else 1.0))
+          for s in shapes]
+    chunks = [sk_mod.chunk_stages(nq, nu, h, e) for e in (4, 8)]
+    assert max(chunks) < h - 1, chunks
+    err = rel(structure_kkt(dims, obj, *xs, 1e-5, h),
+              ss.structure_kkt_solve(dims, obj, *xs, 1e-5, h))
+    obj32, xs32 = cast(obj, xs, torch.float32)
+    res = [reduced_residual(dims, obj32, xs32, 1e-5, h,
+                            fn(dims, obj32, *xs32, 1e-5, h))
+           for fn in (structure_kkt, ss.structure_kkt_solve)]
+    print(f"chunks {chunks}: float64 rel {err:.3g}; float32 residual kernel "
+          f"{res[0]:.3g}, plain {res[1]:.3g}")
+    assert err <= F64_REL, err
+    assert res[0] <= F32_RESIDUAL_RATIO * res[1], res
 
 
 @pytest.mark.cuda

@@ -9,18 +9,27 @@ There is no card here, so what is held is what the CPU can hold:
   bit; the structured solve's raises, its caller runs it), the kernel for
   every model's (nq, nu, H) and every direct path's n on the card, a raise
   past what the source holds; the wrappers' constants are the source's;
-- the launch geometry: a block's shared bytes, from the source's own
-  ``shared_values`` at its constants, equal the wrappers' and fit an
-  H100's 227 KB for every model and H ≤ 20 and for n ≤ 480, both types;
+- the launch geometry, from the source's own constexpr functions evaluated
+  at its constants: the LDLᵀ's cluster (the source's rule, the smallest of
+  4, 8 and 16 CTAs whose shared memory holds the matrix), its rows and
+  shared bytes a CTA, equal to the wrappers' and within an H100's 227 KB
+  for every n ≤ 480 and the source's largest n (≥ 480), both types; the
+  structured solve's chunk of stages (the source's rule: every stage where
+  they fit, else the most that fit) and its shared bytes for every model's
+  (nq, nu) at H ≤ 20, both types, every stage in one chunk at path A's;
 - the kernels' schedules, transcribed into PyTorch step for step (the
-  LDLᵀ's panels of 32 columns, their trailing updates in the order of k and
-  the substitutions by blocks of 32; the structured solve's stage-by-stage
-  Y assembly, Cholesky column steps by the pivot's reciprocal, Lⱼᵢ, the
-  forward substitution folded into the sweep, the backward substitution and
-  the recovery), held to the JAX package in float64: SQD matrices at n = 100
-  and 480 against ``ldl_solve`` to 1e-10 relative (and the factor equal to
-  the port's plain one bit for bit, as the kernel's is), and a quadruped
-  structure KKT at H = 10 against ``structure_kkt_solve`` to 1e-10.
+  LDLᵀ's panels of 32 columns: the diagonal block a column at a time with
+  its rows' forward substitution, every row below eliminated on its own,
+  the trailing update in the order of k, the backward substitution a block
+  of 32 rows at a time from the cluster's partial sums; the structured
+  solve's prologue over every stage, then its chain a stage at a time: M
+  and y's right-hand side, the Cholesky column steps by the pivot's
+  reciprocal square root, Lⱼᵢ and y column by column, then the backward
+  substitution and the recovery), held to the JAX package in float64: SQD
+  matrices at n = 100 and 480 against ``ldl_solve`` to 1e-10 relative (and
+  the factor equal to the port's plain one bit for bit, as the kernel's
+  is), and a quadruped structure KKT at H = 10 against
+  ``structure_kkt_solve`` to 1e-10.
 
 On the card ``tests/test_torch_kkt_cuda.py`` holds the kernels themselves.
 """
@@ -70,14 +79,22 @@ def one_thread():
 
 
 def source_constants(path):
+    """The source's integer constants, and its one-line constexpr functions
+    (``constexpr int f(int a, ...) { return <expression>; }`` without a
+    conditional) as Python functions of the same arguments, C's integer
+    division on the nonnegative values they take; and the source's text."""
     with open(path) as f:
         src = f.read()
     consts = {}
     for k, v in re.findall(r"constexpr int (k\w+) = ([^;]+);", src):
         consts[k] = eval(v.replace("/", "//"), {}, consts)
-    values = re.search(r"constexpr int shared_values\([^)]*\) \{\s*"
-                       r"return ([^;]*);", src).group(1)
-    return consts, " ".join(values.split())
+    funcs = dict(consts)
+    for name, args, expr in re.findall(
+            r"constexpr int (\w+)\(([^)]*)\) \{\s*return ([^;?]*);\s*\}", src):
+        params = ", ".join(a.split()[-1] for a in args.split(","))
+        body = " ".join(expr.split()).replace("/", "//")
+        funcs[name] = eval(f"lambda {params}: {body}", funcs)
+    return consts, funcs, src
 
 
 def sqd(rng, batch, n, m):
@@ -95,15 +112,17 @@ def sqd(rng, batch, n, m):
 # ---- (a) the routes ------------------------------------------------------------
 
 def test_routes_are_the_sources_and_cover_every_model_and_path():
-    consts, _ = source_constants(sk_mod.SOURCE)
+    consts, _, _ = source_constants(sk_mod.SOURCE)
     assert (consts["kThreads"], consts["kMaxN"], consts["kMaxNu"],
             consts["kMinH"], consts["kSharedLimit"]) == (
         sk_mod.THREADS, sk_mod.MAX_N, sk_mod.MAX_NU, sk_mod.MIN_H,
         sk_mod.SHARED_LIMIT)
-    consts, _ = source_constants(ldl_mod.SOURCE)
-    assert (consts["kThreads"], consts["kPanel"], consts["kMaxN"],
-            consts["kSharedLimit"]) == (ldl_mod.THREADS, ldl_mod.PANEL,
-                                        ldl_mod.MAX_N, ldl_mod.SHARED_LIMIT)
+    consts, _, _ = source_constants(ldl_mod.SOURCE)
+    assert (consts["kThreads"], consts["kPanel"], consts["kCluster"],
+            consts["kTileCols"], consts["kLd"], consts["kMaxN"],
+            consts["kSharedLimit"]) == (
+        ldl_mod.THREADS, ldl_mod.PANEL, ldl_mod.CLUSTER, ldl_mod.TILE_COLS,
+        ldl_mod.LD, ldl_mod.MAX_N, ldl_mod.SHARED_LIMIT)
     cuda = torch.device("cuda")
     for dtype in (torch.float32, F64):
         for model in MODELS.values():
@@ -169,74 +188,109 @@ def test_cpu_tensors_take_the_plain_versions():
 # ---- (b) the launch geometry ----------------------------------------------------
 
 def test_launch_geometry_fits_and_matches_the_source():
-    """A block's shared bytes, the source's ``shared_values`` evaluated at
-    its constants, are the wrappers' and fit 227 KB: the structured solve
-    for every model's (nq, nu) at H ≤ 20, the LDLᵀ for n ≤ 480 (and the
-    source's largest n), in float32 and float64."""
-    consts, values = source_constants(sk_mod.SOURCE)
+    """The geometry from the source's own functions at its constants: the
+    LDLᵀ's cluster by the source's rule (the smallest of kCluster, 2 and 4
+    kCluster CTAs whose shared memory holds the matrix), a CTA's rows and
+    shared bytes, equal to the wrappers' and within 227 KB for n ≤ 480 and
+    the source's largest n, which is at least 480; the structured solve's
+    chunk by the source's rule (every stage where they fit, else the most
+    that fit) and its shared bytes for every model's (nq, nu) at H ≤ 20,
+    equal to the wrappers' and within 227 KB, every stage in one chunk at
+    path A's (nq 11, nu 8, H 10). Float32 and float64."""
+    consts, f, src = source_constants(ldl_mod.SOURCE)
+    limit, c4 = consts["kSharedLimit"], consts["kCluster"]
+    assert limit == 227 * 1024 and consts["kMaxN"] >= 480 and c4 == 4
+    assert "return elem_bytes * shared_values(n, kCluster) <= kSharedLimit ? " \
+        "kCluster : elem_bytes * shared_values(n, 2 * kCluster) <= " \
+        "kSharedLimit ? 2 * kCluster : 4 * kCluster;" in " ".join(src.split())
+    for elem in (4, 8):
+        for n in (*range(1, 481), consts["kMaxN"]):
+            cluster = next((c for c in (c4, 2 * c4)
+                            if elem * f["shared_values"](n, c) <= limit),
+                           4 * c4)
+            size = elem * f["shared_values"](n, cluster)
+            assert ldl_mod.cluster_size(n, elem) == cluster
+            assert size == ldl_mod.shared_bytes(n, elem) <= limit, (n, elem)
+            assert f["rows_a_cta"](n, cluster) == ldl_mod.rows_a_cta(
+                n, cluster)
+        assert ldl_mod.cluster_size(480, elem) == (4 if elem == 4 else 16)
+    consts, f, src = source_constants(sk_mod.SOURCE)
+    assert "while (s > 0 && elem_bytes * shared_values(nq, nu, ns, s) > " \
+        "kSharedLimit) --s;" in src
     for elem in (4, 8):
         for model in MODELS.values():
             for h in HORIZONS:
-                env = dict(nq=model.nq, nu=model.nu, ns=h - 1)
-                size = elem * eval(values, {}, env)
-                assert size == sk_mod.shared_bytes(model.nq, model.nu, h, elem)
-                assert size <= consts["kSharedLimit"] == 227 * 1024
-    consts, values = source_constants(ldl_mod.SOURCE)
-    for elem in (4, 8):
-        for n in (*range(1, 481), consts["kMaxN"]):
-            size = elem * eval(values, {}, dict(consts, n=n))
-            assert size == ldl_mod.shared_bytes(n, elem)
-            assert size <= consts["kSharedLimit"]
+                nq, nu, ns = model.nq, model.nu, h - 1
+                chunk = sk_mod.chunk_stages(nq, nu, h, elem)
+                size = elem * f["shared_values"](nq, nu, ns, chunk)
+                assert 1 <= chunk <= ns
+                assert size == sk_mod.shared_bytes(nq, nu, h, elem) <= limit
+                assert chunk == ns or elem * f["shared_values"](
+                    nq, nu, ns, chunk + 1) > limit
+        assert sk_mod.chunk_stages(11, 8, 10, elem) == 9
 
 
 # ---- (c) the kernels' schedules against JAX ------------------------------------
 
-def ldl_schedule(a, b, panel=32, block=32):
-    """``csrc/ldl.cu``'s schedule: panels of ``panel`` columns, each factored
-    a column at a time (scale the column by its floored pivot; update the
-    panel's later columns), then the trailing lower triangle takes the
-    panel's updates in the order of k; L y = b and Lᵀ x = y / d a block of
-    ``block`` rows at a time (the diagonal block a column at a time, the
-    rest in the order of the block's columns). Returns (x, L, d)."""
+def ldl_schedule(a, b, cluster, panel=32):
+    """``csrc/ldl.cu``'s schedule: panels of ``panel`` columns; the diagonal
+    block a column at a time (scale the column by its floored pivot, update
+    the block's later columns) with its rows' forward substitution; every
+    row below it eliminated on its own, the panel's column steps from the
+    block's c_jk and d with its right-hand side (the rows side by side, the
+    same operations a row); the trailing lower triangle takes the panel's
+    updates in the order of k. Then y / d and Lᵀ x = y a block of ``panel``
+    rows at a time from the last: the partial sums of ``cluster`` row owners
+    (row i's by i mod cluster) gathered in the owners' order, the block
+    solved a column at a time, each owner's sums taking its rows of the
+    block. Returns (x, L, d)."""
     n = a.shape[-1]
     boost = torch.finfo(a.dtype).tiny
-    w = a.clone()
+    w, r = a.clone(), b.clone()
     d = torch.empty(a.shape[:-1], dtype=a.dtype)
     for p0 in range(0, n, panel):
         q0 = min(p0 + panel, n)
         for kk in range(p0, q0):
             piv = _boost_pivot(w[:, kk, kk], boost)
             d[:, kk] = piv
-            w[:, kk + 1:, kk] = w[:, kk + 1:, kk] / piv[:, None]
-            w[:, kk + 1:, kk + 1:q0] -= ((piv[:, None] * w[:, kk + 1:, kk])
-                                         [:, :, None]
-                                         * w[:, kk + 1:q0, kk][:, None, :])
+            w[:, kk + 1:q0, kk] = w[:, kk + 1:q0, kk] / piv[:, None]
+            w[:, kk + 1:q0, kk + 1:q0] -= ((piv[:, None] * w[:, kk + 1:q0, kk])
+                                           [:, :, None]
+                                           * w[:, kk + 1:q0, kk][:, None, :])
+            r[:, kk + 1:q0] -= w[:, kk + 1:q0, kk] * r[:, kk:kk + 1]
+        for kk in range(p0, q0):
+            w[:, q0:, kk] = w[:, q0:, kk] / d[:, kk, None]
+            w[:, q0:, kk + 1:q0] -= ((d[:, kk, None] * w[:, q0:, kk])[:, :, None]
+                                     * w[:, kk + 1:q0, kk][:, None, :])
+            r[:, q0:] -= w[:, q0:, kk] * r[:, kk:kk + 1]
         for kk in range(p0, q0):
             w[:, q0:, q0:] -= ((d[:, kk, None] * w[:, q0:, kk])[:, :, None]
                                * w[:, q0:, kk][:, None, :])
     low = torch.tril(w, -1) + torch.eye(n, dtype=a.dtype)
-    r = b.clone()
-    for p0 in range(0, n, block):
-        q0 = min(p0 + block, n)
-        for k in range(p0, q0):
-            r[:, k + 1:q0] -= low[:, k + 1:q0, k] * r[:, k:k + 1]
-        for k in range(p0, q0):
-            r[:, q0:] -= low[:, q0:, k] * r[:, k:k + 1]
-    r = r / _boost_pivot(d, boost)
-    for p1 in range(n, 0, -block):
-        p0 = max(0, p1 - block)
-        for k in range(p1 - 1, p0 - 1, -1):
-            r[:, p0:k] -= low[:, k, p0:k] * r[:, k:k + 1]
-        for k in range(p0, p1):
-            r[:, :p0] -= low[:, k, :p0] * r[:, k:k + 1]
-    return r, low, d
+    z = r / _boost_pivot(d, boost)
+    owner = torch.arange(n) % cluster
+    acc = [torch.where(owner == q, z, torch.zeros_like(z)) for q in range(cluster)]
+    x = torch.empty_like(z)
+    for p0 in reversed(range(0, n, panel)):
+        p1 = min(p0 + panel, n)
+        v = torch.zeros_like(z[:, p0:p1])
+        for q in range(cluster):
+            v = v + acc[q][:, p0:p1]
+        for k in range(p1 - p0 - 1, -1, -1):
+            v[:, :k] -= low[:, p0 + k, p0:p0 + k] * v[:, k:k + 1]
+        x[:, p0:p1] = v
+        for q in range(cluster):
+            for i in range(p0 + (q - p0) % cluster, p1, cluster):
+                acc[q][:, :p0] -= low[:, i, :p0] * x[:, i:i + 1]
+    return x, low, d
 
 
 @pytest.mark.parametrize("n, m", [(100, 40), (480, 180)])
 def test_ldl_schedule_matches_jax(n, m):
     rng = np.random.default_rng(n)
     a, b = sqd(rng, 2, n, m), rng.standard_normal((2, n))
-    x, low, d = ldl_schedule(torch.as_tensor(a), torch.as_tensor(b))
+    x, low, d = ldl_schedule(torch.as_tensor(a), torch.as_tensor(b),
+                             ldl_mod.cluster_size(n, 8))
     l_plain, d_plain = ldl_factor(torch.as_tensor(a))
     assert torch.equal(low, l_plain) and torch.equal(d, d_plain)
     want = np.stack([np.asarray(jl.ldl_solve(jnp.asarray(a[i]),
@@ -247,20 +301,21 @@ def test_ldl_schedule_matches_jax(n, m):
 
 
 def structure_schedule(obj, aa, ab, ba, ru, rqa, rqb, rd1, rd2, beta, h):
-    """``csrc/structure_kkt.cu``'s schedule a stage at a time: W = [aa ab]
-    Q, V = ba R⁻¹ and Yij; Yii's lower triangle less Pᵀ P (P the stage
-    before's Lⱼᵢ) and β; the Cholesky a column step at a time by the
-    pivot's reciprocal, NaN in the lower triangle where a pivot is not > 0;
-    Lⱼᵢ = L⁻¹ Yij a column at a time; y folded into the sweep; then the
+    """``csrc/structure_kkt.cu``'s schedule. The prologue, over every stage
+    at once: W = [aa ab] Q, V = ba R⁻¹, Yij, Yii's lower triangle without
+    the stage before's term, and β. The chain, a stage at a time: M = Yii
+    less Pᵀ P (P the stage before's Lⱼᵢ) and y's right-hand side β − Pᵀ
+    y_prev; the Cholesky a column step at a time by the pivot's reciprocal
+    square root, NaN in the lower triangle where a pivot is not > 0; Lⱼᵢ =
+    L⁻¹ Yij and y = L⁻¹ (β − Pᵀ y_prev) a column at a time. Then the
     backward substitution and the recovery. Returns the five padded steps
     and (Lᵢᵢ, Lⱼᵢ)."""
     batch, nq, nu = aa.shape[0], aa.shape[-1], ba.shape[-1]
     n, ns = 2 * nq, h - 1
     eye = torch.eye(nq, dtype=aa.dtype)
     mv = lambda m, v: (m @ v[..., None])[..., 0]
-    lii, lji, ys = [], [], []
-    prev = None
-    for st in range(ns):
+    yiis, yijs, betas = [], [], []
+    for st in range(ns):                      # the prologue
         t = st + 1
         mask = 1.0 if st > 0 else 0.0
         a, b_, bam = aa[:, t], ab[:, t], ba[:, t]
@@ -274,11 +329,11 @@ def structure_schedule(obj, aa, ab, ba, ru, rqa, rqb, rd1, rd2, beta, h):
         v = bam @ ra
         if st < ns - 1:
             an, bn = aa[:, t + 1], ab[:, t + 1]
-            yij = torch.cat([
+            yijs.append(torch.cat([
                 torch.cat([(-qvn).expand(batch, nq, nq),
                            -(qan @ an.mT + qvn @ bn.mT)], -1),
                 torch.cat([(-qbn).expand(batch, nq, nq),
-                           -(qvn @ an.mT + qbn @ bn.mT)], -1)], -2)
+                           -(qvn @ an.mT + qbn @ bn.mT)], -1)], -2))
         g = mv(ra, ru[:, t])
         pa, pb, pc, pd = mv(qac, rqap), mv(qbc, rqbp), mv(qvc, rqbp), \
             mv(qvc, rqap)
@@ -287,41 +342,44 @@ def structure_schedule(obj, aa, ab, ba, ru, rqa, rqb, rd1, rd2, beta, h):
         yiid = (qbn + v @ bam.mT + mask * (w[..., :nq] @ a.mT
                                           + w[..., nq:] @ b_.mT)
                 + beta * eye)
-        yii = torch.cat([torch.cat([yiia, yiic.mT], -1),
-                         torch.cat([yiic, yiid], -1)], -2)
-        m = torch.tril(yii if prev is None else yii - prev.mT @ prev)
+        yiis.append(torch.tril(torch.cat([torch.cat([yiia, yiic.mT], -1),
+                                          torch.cat([yiic, yiid], -1)], -2)))
         beta1 = -rd1[:, t] + mv(qan, rqa[:, t]) + mv(qvn, rqb[:, t]) \
             - mask * (pb + pd)
         beta2 = (-rd2[:, t] - mv(bam, g) + mv(qbn, rqb[:, t])
                  + mv(qvn, rqa[:, t])
                  - mask * (mv(a, pa) + mv(b_, pb) + mv(a, pc) + mv(b_, pd)))
-        rhs = torch.cat([beta1, beta2], -1)
+        betas.append(torch.cat([beta1, beta2], -1))
+    lii, lji, ys = [], [], []
+    for st in range(ns):                      # the chain
+        m, rhs = yiis[st], betas[st]
+        if st > 0:
+            prev = lji[-1]
+            m = m - torch.tril(prev.mT @ prev)
+            rhs = rhs - mv(prev.mT, ys[-1])
         low = torch.zeros_like(m)
+        rdg = torch.zeros_like(rhs)
         bad = torch.zeros(batch, dtype=torch.bool)
         for k in range(n):
             dk = m[:, k, k]
             bad |= ~(dk > 0)
-            lkk = torch.sqrt(dk)
-            r = 1.0 / lkk
-            low[:, k, k] = lkk
-            c = m[:, k + 1:, k] * r[:, None]
+            rdg[:, k] = torch.rsqrt(dk)
+            low[:, k, k] = torch.sqrt(dk)
+            c = m[:, k + 1:, k] * rdg[:, k, None]
             low[:, k + 1:, k] = c
             m[:, k + 1:, k + 1:] -= c[:, :, None] * c[:, None, :]
         low = torch.where(bad[:, None, None],
                           torch.full_like(low, float("nan")).tril(), low)
+        rdg = torch.where(bad[:, None], float("nan"), rdg)
+        cols = torch.cat([yijs[st], rhs[:, :, None]], -1) if st < ns - 1 \
+            else rhs[:, :, None].clone()
+        for k in range(n):                    # Lⱼᵢ's and y's columns
+            cols[:, k] = cols[:, k] * rdg[:, k, None]
+            cols[:, k + 1:] -= low[:, k + 1:, k, None] * cols[:, k:k + 1]
         lii.append(low)
         if st < ns - 1:
-            for i in range(n):
-                yij[:, i] = (yij[:, i] - (low[:, i, :i, None] * yij[:, :i])
-                             .sum(1)) / low[:, i, i, None]
-            lji.append(yij)
-        if prev is not None:
-            rhs = rhs - mv(prev.mT, ys[-1])
-        for k in range(n):
-            rhs[:, k] = rhs[:, k] / low[:, k, k]
-            rhs[:, k + 1:] -= low[:, k + 1:, k] * rhs[:, k:k + 1]
-        ys.append(rhs)
-        prev = yij if st < ns - 1 else None
+            lji.append(cols[..., :-1])
+        ys.append(cols[..., -1])
     xs = [None] * ns
     for st in reversed(range(ns)):
         r = ys[st] if st == ns - 1 else ys[st] - mv(lji[st], xs[st + 1])

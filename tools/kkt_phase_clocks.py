@@ -7,14 +7,19 @@ each phase, on the GPU.
 Runs each kernel through its wrapper on seeded inputs at the paths' shapes:
 the structured solve (``ops/structure_kkt.py``) at path A's (16 lanes, nq
 11, nu 8, H 10) and the 2D hopper's widths (nq 4, nu 2), the LDLᵀ
-(``ops/ldl.py``) at n = 300 and 480 (16 SQD matrices), float32 and
+(``ops/ldl.py``) at n = 100, 300 and 480 (16 SQD matrices), float32 and
 float64. One JSON line a case: the launch's time over ``--reps`` launches
 of the build the Newton solves run (CUDA events), and the cycles a launch
 of each phase and their sum, averaged over ``--reps`` launches of the
 clocked build (``-DKKT_PHASE_CLOCKS``, ``phase_clocks``: thread 0 of
-block 0 reads ``clock64()`` at the phases' marks; the wrappers' ``PHASES``
-name them), beside the card's name, SM clocks and power limit as
-``nvidia-smi`` reads them. The marks leave the arithmetic as it is.
+block 0, for the LDLᵀ CTA 0 of cluster 0, reads ``clock64()`` at the
+phases' marks; the wrappers' ``PHASES`` name them; a phase that overlaps
+another, as the LDLᵀ's diagonal-block factor overlaps the trailing
+update's columns past it, is clocked on thread 0's own warp), the LDLᵀ's
+cluster geometry and how many such clusters the card runs at once
+(``cudaOccupancyMaxActiveClusters``), beside the card's name, SM clocks
+and power limit as ``nvidia-smi`` reads them. The marks leave the
+arithmetic as it is.
 """
 
 import argparse
@@ -94,7 +99,7 @@ def main(argv=None):
                                  lambda: sk_mod.phase_clocks(*call), args.reps)
             report("structure_kkt", dtype,
                    {"lanes": lanes, "nq": nq, "nu": nu, "h": h}, ms, cycles)
-        for n, m in ((300, 110), (480, 180)):
+        for n, m in ((100, 40), (300, 110), (480, 180)):
             rng = np.random.default_rng(1)
             p = rng.standard_normal((16, n - m, n - m))
             p = p @ p.transpose(0, 2, 1) / (n - m) + np.eye(n - m)
@@ -109,7 +114,12 @@ def main(argv=None):
             ms, cycles = measure(lambda: ldl_mod.ldl(mats, rhs),
                                  lambda: ldl_mod.phase_clocks(mats, rhs),
                                  args.reps)
-            report("ldl", dtype, {"lanes": 16, "n": n}, ms, cycles)
+            elem = mats.element_size()
+            report("ldl", dtype, {"lanes": 16, "n": n,
+                                  **ldl_mod.geometry(n, elem),
+                                  "max_active_clusters":
+                                      ldl_mod.max_active_clusters(n, elem)},
+                   ms, cycles)
     print(describe(dev))
 
 
