@@ -71,6 +71,7 @@ from ..ops.ldl import ldl
 from ..ops.structure_kkt import structure_kkt
 from ..sim.interior_point import IPOptions
 from ..utils.cuda_graphs import Captured
+from ..utils.spans import span
 from .newton import (NewtonAssembler, NewtonOptions, newton_program,
                      newton_solve, run_newton)
 from .structure_solver import (structure_newton_solve,
@@ -153,10 +154,15 @@ class _GraphSet:
                 def warmup():       # one trip, not all of them
                     prog.finish(prog.trip(prog.start()))
 
-        self.graphs = Captured(pieces, warmup, leaves[0].device, stats,
-                               counters=COUNTERS)
+        self.graphs = Captured("newton", pieces, warmup, leaves[0].device,
+                               stats, counters=COUNTERS)
         stats["warmup_launches"] += knot_ip.launches - launched
         stats["warmup_kkt_launches"] += kkt_launches() - kkt_launched
+
+    def live(self) -> bool:
+        """Whether a lane's Newton is still live: one read of the flag."""
+        with span("newton.flag"):
+            return bool(self.flag)
 
     def __call__(self, args):
         stats["replays"] += 1
@@ -166,7 +172,7 @@ class _GraphSet:
             out = self.graphs.replay("solve")
         else:
             self.graphs.replay("start")
-            while bool(self.flag):            # one read a trip
+            while self.live():                # one read a trip
                 self.graphs.replay("trip")
                 stats["trips"] += 1
             out = self.prog.finish(self.state)

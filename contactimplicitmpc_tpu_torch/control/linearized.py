@@ -23,6 +23,7 @@ from ..models.base import Model
 from ..ops.linsolve import gj_inverse, mv
 from ..sim.residual import (residual, residual_theta_jacobian,
                             residual_z_jacobian)
+from ..utils.spans import span
 from .trajectory import ContactTraj
 
 
@@ -48,7 +49,8 @@ def linearize_trajectory(model: Model, env, traj: ContactTraj,
                 residual_z_jacobian(model, env, z0, th0),
                 residual_theta_jacobian(model, env, z0, th0))
 
-    r0, rz0, rt0 = vmap(one)(traj.z, traj.theta)
+    with span("linearize"):
+        r0, rz0, rt0 = vmap(one)(traj.z, traj.theta)
     return LinearizedData(z0=traj.z, theta0=traj.theta, r0=r0, rz0=rz0,
                           rtheta0=rt0)
 

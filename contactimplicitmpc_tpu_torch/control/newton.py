@@ -42,7 +42,6 @@ from ..dims import Dims
 from ..ops.ldl import ldl
 from ..sim.interior_point import IPOptions
 from ..utils.cuda_graphs import capturable_linalg
-from ..utils.spans import span
 from .implicit_dynamics import (CONFIGURATION, CONFIGURATION_FORCE,
                                 ImplicitDynamicsResult, implicit_dynamics,
                                 nd_of)
@@ -386,8 +385,7 @@ def newton_program(dims: Dims, mode: str, assembler: NewtonAssembler, obj,
 
     def body(traj_c, nu_c, beta_c, imp_c, r_c, r_norm_c):
         jac = assembler.jacobian(obj, imp_c, beta_c, kappa, dtype)
-        with span("kkt_solve", jac):
-            delta = kkt_solve(jac, r_c)
+        delta = kkt_solve(jac, r_c)
         # the line search over α ∈ {1, 1/2, …, 2⁻⁶}: one batch (B, n_ls)
         trials = ContactTraj(traj_c.h, traj_c.kappa, *(
             x[:, None].expand((batch, n_ls) + x.shape[1:])

@@ -200,7 +200,8 @@ def ci_mpc_policy(model: Model, env, ref_traj: ContactTraj, obj, h_mpc: int,
                                 dim=1),
             q_buf=torch.cat([state.q_buf[:, 1:], obs.q1[:, None]], dim=1))
         if state.cnt == n_sample:
-            state = control_update(state, obs)
+            with span("policy.update"):
+                state = control_update(state, obs)
         state = state._replace(cnt=state.cnt + 1)
         return state.u / n_sample, state
 

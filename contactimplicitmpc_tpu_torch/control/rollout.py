@@ -207,46 +207,49 @@ def mpc_rollout(model: Model, env, ref_traj: ContactTraj, obj,
 
     steps, us, r_norms, n_iters = [], [], [], []
     for t in range(n_ctrl):
-        warm = prev_ok & (t > 0)
-        if mpc_opts.altitude_update:
-            alt = update_altitude(alt, gamma_prev, q_prev, warm)
-        ref_window = ref_window_at(t)
-        window = (t + np.arange(h_mpc)) % h_ref
-        wm = lambda x: warm.view((-1,) + (1,) * (x.dim() - 1))
-        if structure:
-            lin_w = gather(lin, window[:h_mpc - 1])
-            q_ref = ref_window.q[:h_mpc + 1]
-            u_ref = ref_window.u[:h_mpc - 1]
-            st_ref = state_from_reference(q_ref, u_ref, dims, h_mpc)
-            if structure_full_warm:
-                shifted = shift_state(warm_state, q_ref, u_ref, h_mpc)
-                st0 = type(st_ref)(*(torch.where(wm(a), a, b)
-                                     for a, b in zip(shifted, st_ref)))
+        with span("rollout.prep"):
+            warm = prev_ok & (t > 0)
+            if mpc_opts.altitude_update:
+                alt = update_altitude(alt, gamma_prev, q_prev, warm)
+            ref_window = ref_window_at(t)
+            window = (t + np.arange(h_mpc)) % h_ref
+            wm = lambda x: warm.view((-1,) + (1,) * (x.dim() - 1))
+            if structure:
+                lin_w = gather(lin, window[:h_mpc - 1])
+                q_ref = ref_window.q[:h_mpc + 1]
+                u_ref = ref_window.u[:h_mpc - 1]
+                st_ref = state_from_reference(q_ref, u_ref, dims, h_mpc)
+                if structure_full_warm:
+                    shifted = shift_state(warm_state, q_ref, u_ref, h_mpc)
+                    st0 = type(st_ref)(*(torch.where(wm(a), a, b)
+                                         for a, b in zip(shifted, st_ref)))
+                else:
+                    # duals-only warm start: primal stages from the reference
+                    st0 = type(st_ref)(
+                        *(x.expand((batch,) + x.shape) for x in st_ref[:3]),
+                        torch.where(wm(warm_state.nu1), warm_state.nu1,
+                                    st_ref.nu1),
+                        torch.where(wm(warm_state.nu2), warm_state.nu2,
+                                    st_ref.nu2))
+                args = (lin_w, q_ref, u_ref, ref_window.theta[:h_mpc - 1],
+                        q_ctrl_prev, qb_sim, st0, alt)
             else:
-                # duals-only warm start: primal stages from the reference
-                st0 = type(st_ref)(
-                    *(x.expand((batch,) + x.shape) for x in st_ref[:3]),
-                    torch.where(wm(warm_state.nu1), warm_state.nu1,
-                                st_ref.nu1),
-                    torch.where(wm(warm_state.nu2), warm_state.nu2,
-                                st_ref.nu2))
-            with span("newton", qb_sim):
-                result = newton(lin_w, q_ref, u_ref,
-                                ref_window.theta[:h_mpc - 1], q_ctrl_prev,
-                                qb_sim, st0, alt)
+                lin_w = gather(lin, window)
+                traj0 = ContactTraj(ref_window.h, ref_window.kappa, *(
+                    torch.where(wm(a), a, b)
+                    for a, b in zip(warm_state[2:], ref_window[2:])))
+                nu0 = torch.where(wm(nu), nu, torch.zeros_like(nu))
+                # newton sees configurations one control period (= gait
+                # step h) apart: (q at previous update, current q) —
+                # policy.jl:117-132
+                args = (lin_w, ref_window, traj0, nu0, q_ctrl_prev, qb_sim,
+                        alt)
+        with span("newton", qb_sim):
+            result = newton(*args)
+        if structure:
             u = result.state.u[:, 1]
             warm_state = result.state
         else:
-            lin_w = gather(lin, window)
-            traj0 = ContactTraj(ref_window.h, ref_window.kappa, *(
-                torch.where(wm(a), a, b)
-                for a, b in zip(warm_state[2:], ref_window[2:])))
-            nu0 = torch.where(wm(nu), nu, torch.zeros_like(nu))
-            # newton sees configurations one control period (= gait step
-            # h) apart: (q at previous update, current q) — policy.jl:117-132
-            with span("newton", qb_sim):
-                result = newton(lin_w, ref_window, traj0, nu0, q_ctrl_prev,
-                                qb_sim, alt)
             u = result.traj.u[:, 0]
             warm_state, nu = result.traj, result.nu
 

@@ -48,6 +48,7 @@ from ..dims import Dims
 from ..models.base import Model, dims_of
 from ..ops import sim_ip
 from ..utils.cuda_graphs import Captured
+from ..utils.spans import span
 from .interior_point import (IPOptions, IPResult, IPState, ip_program,
                              ip_solve, run_program)
 from .residual import residual
@@ -55,9 +56,10 @@ from .residual import residual
 
 # What the sim solves of this process did on the card, summed, for the
 # smoke test and the span tool to reset and read (plain numbers, as the
-# knot kernel's launch count): solves replayed, graph sets captured, and
-# those captures' warm-up and capture seconds and device bytes.
-stats = dict.fromkeys(("replays", "sets", "warmup_s", "capture_s",
+# knot kernel's launch count): solves replayed, trip graphs replayed (the
+# adaptive loop), graph sets captured, and those captures' warm-up and
+# capture seconds and device bytes.
+stats = dict.fromkeys(("replays", "trips", "sets", "warmup_s", "capture_s",
                        "pool_bytes"), 0)
 
 
@@ -111,7 +113,12 @@ class _GraphSet:
         # dead set's graphs to the cyclic collector, which may run inside
         # another capture
         self.prog = prog
-        self.graphs = Captured(pieces, warmup, z0.device, stats)
+        self.graphs = Captured("sim", pieces, warmup, z0.device, stats)
+
+    def live(self) -> bool:
+        """Whether a problem is still live: one read of the flag."""
+        with span("sim.flag"):
+            return bool(self.flag)
 
     def __call__(self, z0, theta) -> IPResult:
         stats["replays"] += 1
@@ -124,8 +131,9 @@ class _GraphSet:
             for attempt in range(self.opts.retries + 1):
                 if attempt:
                     self.graphs.replay("restart")
-                while bool(self.flag):        # one read a trip
+                while self.live():            # one read a trip
                     self.graphs.replay("trip")
+                    stats["trips"] += 1
             out = self.graphs.replay("finish")
         return IPResult(*(None if x is None else x.clone() for x in out))
 
@@ -176,7 +184,8 @@ class SimSolve:
                         cone=self.cone)
 
     def _kernel(self, z0, theta) -> IPResult:
-        return sim_ip.sim_ip(self.model, self.env, z0, theta, self.opts)
+        with span("sim.launch"):
+            return sim_ip.sim_ip(self.model, self.env, z0, theta, self.opts)
 
     def _graphed(self, z0, theta) -> IPResult:
         key = (tuple(z0.shape), tuple(theta.shape), z0.dtype, z0.device)

@@ -1,9 +1,10 @@
 """Pieces of work captured as CUDA graphs and replayed by name, and the
 linear-algebra routines such a capture can hold.
 
-``Captured(pieces, warmup, device, stats)`` is the capture both compiled
-solves of the port use: the sim step's (``sim/graphs.py``) and the MPC's
-Newton solve (``control/graphs.py``). Each piece is a function of no
+``Captured(label, pieces, warmup, device, stats)`` is the capture both
+compiled solves of the port use: the sim step's (``sim/graphs.py``, label
+``"sim"``) and the MPC's Newton solve (``control/graphs.py``,
+``"newton"``). Each piece is a function of no
 arguments over tensors the caller keeps (its static inputs and any carry);
 what it returns stays in the graphs' memory and is read after a replay.
 
@@ -23,7 +24,9 @@ what it returns stays in the graphs' memory and is read after a replay.
 
 ``stats`` gains the set (``sets``), its warm-up and capture seconds and
 the device bytes its pool reserved. A capture that fails raises: there is
-no eager path on the card.
+no eager path on the card. The whole construction is the span
+``<label>.capture``, each replay's launch the span ``<label>.launch``
+(``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ import time
 from typing import Callable, Iterable
 
 import torch
+
+from .spans import span
 
 
 @contextlib.contextmanager
@@ -58,12 +63,17 @@ def capturable_linalg(like):
 class Captured:
     """The CUDA graphs of ``pieces`` ({name: function}) on ``device``,
     captured at construction (the module's docstring); ``replay(name)``
-    replays one and returns what its function returned. ``counters`` are
-    kernel wrappers with a ``launches`` count."""
+    replays one and returns what its function returned. ``label`` names the
+    owner in the spans; ``counters`` are kernel wrappers with a
+    ``launches`` count."""
 
-    def __init__(self, pieces: dict, warmup: Callable, device, stats: dict,
-                 counters: Iterable = ()):
-        counters = tuple(counters)
+    def __init__(self, label: str, pieces: dict, warmup: Callable, device,
+                 stats: dict, counters: Iterable = ()):
+        self.launch_span = label + ".launch"
+        with span(label + ".capture"):
+            self._capture(pieces, warmup, device, stats, tuple(counters))
+
+    def _capture(self, pieces, warmup, device, stats, counters):
         stream = torch.cuda.Stream(device)
         pool = torch.cuda.graph_pool_handle()
         current = torch.cuda.current_stream(device)
@@ -101,7 +111,8 @@ class Captured:
         stats["pool_bytes"] += torch.cuda.memory_reserved(device) - reserved
 
     def replay(self, name: str):
-        self.graphs[name].replay()
+        with span(self.launch_span):
+            self.graphs[name].replay()
         for counter, n in self.launches[name]:
             counter.launches += n
         return self.outputs[name]

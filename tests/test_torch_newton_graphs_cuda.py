@@ -15,6 +15,12 @@ fresh ``NewtonSolve``:
   solve's on the same inputs;
 - a second call with the same shapes captures nothing new, and structure
   mode replays no trip graph (one graph a solve), direct mode one a trip;
+- traced by ``torch.profiler``, a first rollout of path A (the sim
+  kernel, the structure Newton) and of path D (the sim graphs, the direct
+  Newton) leaves the program's spans (``utils/spans.py``) in the trace as
+  ``cimpc.<name>`` ranges, each of its layers' boundaries; on D the sim
+  graphs' trip counter (``sim.graphs.stats["trips"]``) equals the trip
+  graphs' replays;
 - float64: the knot kernel takes float32 only, so a Newton solve on the
   card is float32; the Newton's own linear algebra in float64, the direct
   mode's whole LDLᵀ at paths D's, I's and K's n = 480 and the structure
@@ -27,11 +33,16 @@ imports neither JAX nor the JAX package:
     python -m pytest --noconftest -m cuda tests/test_torch_newton_graphs_cuda.py
 """
 
+import os
+import sys
+from collections import Counter
 from unittest import mock
 
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 from torch.utils._pytree import tree_leaves
 
 from contactimplicitmpc_tpu_torch.control import graphs
@@ -46,6 +57,7 @@ from contactimplicitmpc_tpu_torch.models.base import dims_of
 from contactimplicitmpc_tpu_torch.models.quadruped import quadruped
 from contactimplicitmpc_tpu_torch.ops.knot_ip import knot_ip
 from contactimplicitmpc_tpu_torch.ops.linsolve import ldl_solve
+from contactimplicitmpc_tpu_torch.sim import graphs as sim_graphs
 from contactimplicitmpc_tpu_torch.utils.cuda_graphs import Captured
 
 CONFIGS = {"A": HotPathConfig(),
@@ -169,11 +181,66 @@ def test_second_call_captures_nothing_new(recorded):
         assert graphs.stats["trips"] == 2 * after_first["trips"] > 0
 
 
+def traced_spans(run):
+    """{span name: entries} of the program's spans in a ``torch.profiler``
+    trace of ``run()`` on the card."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return Counter(e.name[len("cimpc."):] for e in prof.events()
+                   if e.name.startswith("cimpc.")
+                   and e.device_type == DeviceType.CPU)
+
+
+@pytest.mark.cuda
+def test_path_a_rollout_leaves_its_spans_in_the_trace(card):
+    cfg = HotPathConfig()
+    roll, ref, model, _, _ = make_quadruped_rollout(
+        cfg, 2 * cfg.n_sample, torch.float32, device=card)
+    q1s, v1s = conf_initial_states(model, ref)
+    got = traced_spans(lambda: roll(q1s, v1s))
+    steps = 2 * cfg.n_sample
+    assert got == {"linearize": 1, "rollout.prep": 2, "newton": 2,
+                   "newton.capture": 1, "newton.launch": 2,
+                   "sim_ip": steps, "sim.launch": steps}, got
+
+
+@pytest.mark.cuda
+def test_path_d_rollout_leaves_its_spans_and_counts_its_trips(card):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    roll, _, n_sample, _ = chip_smoke.centroidal_rollout(card)
+    replays = Counter()
+    replay = Captured.replay
+
+    def counted(self, name):
+        replays[self.launch_span, name] += 1
+        return replay(self, name)
+
+    sim_graphs.reset_stats()
+    with mock.patch.object(Captured, "replay", counted):
+        got = traced_spans(lambda: roll(n_sample))
+    assert set(got) == {"linearize", "rollout.prep", "newton",
+                        "newton.capture", "newton.launch", "newton.flag",
+                        "sim_ip", "sim.capture", "sim.launch",
+                        "sim.flag"}, got
+    assert got["sim_ip"] == n_sample and got["newton"] == 1
+    trips = replays["sim.launch", "trip"]
+    assert sim_graphs.stats["trips"] == trips > 0
+    assert got["sim.launch"] == sum(n for (label, _), n in replays.items()
+                                    if label == "sim.launch")
+    assert got["newton.launch"] == sum(n for (label, _), n in replays.items()
+                                       if label == "newton.launch")
+
+
 def captured_against_eager(fn, dev):
     """``fn`` captured and replayed twice, and run eagerly: the three
     results."""
     stats = dict.fromkeys(("sets", "warmup_s", "capture_s", "pool_bytes"), 0)
-    cap = Captured({"fn": fn}, fn, dev, stats)
+    cap = Captured("fn", {"fn": fn}, fn, dev, stats)
     first = tuple(x.clone() for x in tree_leaves(cap.replay("fn")))
     second = tuple(x.clone() for x in tree_leaves(cap.replay("fn")))
     want = tuple(tree_leaves(fn()))

@@ -9,16 +9,19 @@ direct-mode hot path, the port's public surface and its spans; CPU.
 * ``HotPathConfig(newton_mode="direct")`` through ``make_quadruped_rollout``
   (the port alone: two lanes, one control period);
 * the names the JAX package exports that the port has;
-* ``utils/spans.py``.
+* ``utils/spans.py``'s three modes: off (no clock, no profiler range, no
+  synchronisation), totals, and ranges in a ``torch.profiler`` trace.
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import contactimplicitmpc_tpu as ci
 from contactimplicitmpc_tpu.control import NewtonOptions as JNewtonOptions
@@ -161,3 +164,90 @@ def test_spans_are_off_unless_started():
     assert set(got) == {"a", "b"} and got["a"][1] == 3 and got["b"][1] == 3
     assert got["a"][0] >= got["b"][0] >= 0.0
     assert spans.stop() == {}
+
+
+class FakeCuda:
+    """A stand-in for a CUDA tensor as a span's ``like``: the CPU build has
+    no device to synchronise, so the synchronisation is counted instead."""
+    is_cuda = True
+
+
+def no_device(monkeypatch, allow_sync=False):
+    """Patch out the CUDA calls a span may make: the capture check reads
+    False; a synchronisation raises, or with ``allow_sync`` is counted."""
+    calls = []
+
+    def synchronize(*args):
+        if not allow_sync:
+            raise AssertionError("a span synchronised the device")
+        calls.append(args)
+
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(torch.cuda, "synchronize", synchronize)
+    return calls
+
+
+def test_spans_off_read_no_clock_and_open_no_range(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("an off span did work")
+
+    no_device(monkeypatch)
+    monkeypatch.setattr(spans.time, "perf_counter", refuse)
+    monkeypatch.setattr(spans, "record_function", refuse)
+    assert spans.span("a") is spans.span("b", FakeCuda())
+    with spans.span("a", FakeCuda()):
+        with spans.span("b"):
+            pass
+    assert spans.stop() == {}
+
+
+def test_spans_are_nested_ranges_in_the_profiler_trace(tmp_path):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with spans.span("a"):
+            with spans.span("b"):
+                torch.ones(4).sum()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = {e["name"]: e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "user_annotation"}
+    a, b = events["cimpc.a"], events["cimpc.b"]
+    assert a["ts"] <= b["ts"] and b["ts"] + b["dur"] <= a["ts"] + a["dur"]
+    assert spans.stop() == {}           # the profiler turns no totals on
+
+
+def test_spans_synchronise_only_for_a_device_like_in_totals(monkeypatch):
+    calls = no_device(monkeypatch, allow_sync=True)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with spans.span("a", FakeCuda()):    # profiler mode alone
+            pass
+        spans.start()
+        with spans.span("a", FakeCuda()):    # both modes: no sync either
+            pass
+        both = spans.stop()
+    assert calls == [] and both["a"][1] == 1
+    spans.start()
+    with spans.span("b"):                    # totals, no like
+        pass
+    assert calls == []
+    with spans.span("c", FakeCuda()):        # totals, a device like
+        pass
+    assert len(calls) == 2
+    got = spans.stop()
+    assert set(got) == {"b", "c"}
+    assert all(isinstance(s, float) and s >= 0.0 and n == 1
+               for s, n in got.values())
+
+
+def test_totals_count_seconds_and_entries_under_the_profiler():
+    """With a profiler recording and totals on, a span is both a range and
+    a total, ``{name: (seconds, entries)}``."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        spans.start()
+        for _ in range(2):
+            with spans.span("a"):
+                torch.ones(4).sum()
+        got = spans.stop()
+    assert set(got) == {"a"} and got["a"][1] == 2 and got["a"][0] > 0.0
+    names = [e.name for e in prof.events()]
+    assert names.count("cimpc.a") == 2

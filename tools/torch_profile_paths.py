@@ -42,10 +42,9 @@ kernels' (``csrc/structure_kkt.cu`` on A, ``csrc/ldl.cu`` on the direct
 paths), the five kernels with the most device time, the spans (seconds and entries by
 name) with their wall, the Newton replays and trip replays
 (``control.graphs.stats``) and the longer run's sim and Newton captures
-(sets, warm-up and capture seconds, pool bytes). Inside a replayed Newton
-solve the ``kkt_solve`` and ``knot_ip`` spans do nothing (a capture cannot
-synchronise; they would time the graphs' warm-ups alone, and are left
-out), so the KKT solve's time is taken apart: the first KKT
+(sets, warm-up and capture seconds, pool bytes). No span times the KKT
+solve inside a replayed Newton graph, so the KKT solve's time is taken
+apart: the first KKT
 a path's warm-up run solves is kept where the Newton calls the kernel's
 wrapper (the direct mode's ``ops/ldl.py::ldl``, the structure mode's
 ``ops/structure_kkt.py::structure_kkt``), captured alone and its replays
@@ -137,8 +136,6 @@ def spanned(fn):
                        capture_seconds(newton_graphs.stats))
     out["sim_ip"][0] -= sim_s
     out["newton"][0] -= newton_s
-    for inside in ("kkt_solve", "knot_ip"):   # only the warm-ups' now
-        out.pop(inside, None)
     return out, wall - sim_s - newton_s
 
 
@@ -193,7 +190,7 @@ def kkt_device_ms(kkt, reps=10):
     fn, args = kkt
     solve = lambda: fn(*args)
     device = next(a for a in args if isinstance(a, torch.Tensor)).device
-    captured = Captured({"kkt": solve}, solve, device, stats)
+    captured = Captured("kkt", {"kkt": solve}, solve, device, stats)
     replay = lambda: captured.replay("kkt")
     ms = chip_smoke.cuda_ms(replay, reps, spin=True)
     kernels = device_kernels(replay, reps)
